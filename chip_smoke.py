@@ -8,17 +8,26 @@ Run from the repository root with no arguments:
 It builds the hand-written CUDA kernels from ``ltm_torch/csrc`` (nvcc,
 sm_90a), then runs four phases, each of which raises on failure:
 
-  1. device and build: the card, PyTorch/CUDA versions, kernel build time;
+  1. device and build: the card, PyTorch/CUDA versions, kernel build time,
+     the ``-Xptxas -v`` report, and the hot block of each scan
+     instantiation read from ``cuobjdump -sass`` (full dump in
+     ``chiprun_out/knn2.sass``);
   2. kernel vs plain: ``knn2_sqdists`` (CUDA) against ``knn2_sqdists_plain``
-     on the card, on a masked case, a duplicate-target case and a km-scale
-     case, to 1 ulp and with identical kNN decisions at 0.04 and 1.0;
+     on the card at 0 ulps, on a masked case, duplicate targets, duplicates
+     straddling a target-split boundary, a split-heavy case, all queries
+     invalid, no valid target, one valid target, a valid-query count that
+     is not a multiple of a CTA's queries, and a km-scale case (timed, with
+     a sweep of queries a thread);
   3. card vs CPU: ``Removerter.run`` on a small synthetic survey on the CPU
      (plain versions) and on the card (kernels); the 14 named point sets
      agree within max(2, 1e-4·|set|) points;
   4. full width: the LT-removert pipeline workload of ``bench.py`` (two
      sessions x 48 keyframes x 120k points, 0.1 m voxels, brute kNN) once to
-     warm up and three timed times, then once under ``torch.profiler``;
-     every kernel of the path must launch in every timed run.
+     warm up (recording the three knn2 calls: ND, PD, weak->strong
+     promotion) and three timed times, then once under ``torch.profiler``;
+     every kernel of the path must launch in every timed run.  Each of the
+     three recorded calls is then held to the plain version at 0 ulps and
+     timed against its bound.
 
 It prints one JSON object per kernel line, then the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Without a
@@ -28,8 +37,11 @@ and prints no result.  The port imports neither ``jax`` nor ``ltm``.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -39,6 +51,7 @@ import numpy as np
 
 H100_FP32_FLOPS = 67e12      # non-tensor FP32 peak, H100 SXM (an FMA counts as two)
 H100_BYTES_PER_S = 3.35e12   # HBM3 peak, H100 SXM
+OUT_DIR = "chiprun_out"
 
 
 def log(*args):
@@ -102,34 +115,94 @@ def library_knn2_ms(q, qm, t, tm, chunk=1024) -> float:
     return cuda_ms(run, reps=1)
 
 
-def compare_knn2(name, q, qm, t, tm, timed=False):
-    """Kernel vs plain on the card: 1 ulp, same decisions.  Returns stats."""
+def plan_of(q, qm, t, tm, r=None):
+    """(splits, chunk) the wrapper plans for these inputs on this card."""
+    from ltm_torch.kernels import knn2
+
+    return knn2._device_plan(q.device, int(qm.sum()), int(tm.sum()), r or knn2._R)
+
+
+def knn2_device_ms(fn):
+    """One call of ``fn`` under ``torch.profiler``: device ms of the knn2
+    kernels (compaction, scan and merge) and of the torch ops it launched
+    (the masks' prefix sums and the count read)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    ours = sum(e.self_device_time_total for e in events if "knn2_" in e.key)
+    rest = sum(e.self_device_time_total for e in events if "knn2_" not in e.key)
+    return ours / 1e3, rest / 1e3
+
+
+def compare_knn2(name, q, qm, t, tm, timed=False, library=False, launches=1):
+    """Kernel vs plain on the card: 0 ulps, same decisions, and the expected
+    number of scan launches (0 when a side has no valid point).  The plain
+    call is timed once, by CUDA events.  Returns stats."""
     import torch
 
     from ltm_torch.kernels.knn2 import knn2_sqdists, knn2_sqdists_plain
 
-    before = knn2_sqdists.launches
+    before = knn2_sqdists.launches, knn2_sqdists.merges
     got = knn2_sqdists(q, qm, t, tm)
     torch.cuda.synchronize()
-    ref = knn2_sqdists_plain(q, qm, t, tm)
-    torch.cuda.synchronize()
-    g, r = got.cpu().numpy(), ref.cpu().numpy()
+    if knn2_sqdists.launches - before[0] != launches:
+        raise AssertionError(f"{name}: {knn2_sqdists.launches - before[0]} scan launches, "
+                             f"expected {launches}")
+    holder = []
+    plain_ms = cuda_ms(lambda: holder.append(knn2_sqdists_plain(q, qm, t, tm)), reps=1)
+    g, r = got.cpu().numpy(), holder[0].cpu().numpy()
     ulps = ulps_apart(g, r)
-    if ulps > 1:
+    if ulps > 0:
         raise AssertionError(f"{name}: kernel and plain differ by {ulps} ulps")
     for thr in (0.04, 1.0):
         if not np.array_equal(g.mean(1) < thr, r.mean(1) < thr):
             raise AssertionError(f"{name}: kNN decisions at {thr} differ")
     valid = qm.cpu().numpy()
-    stats = {"case": name, "n": q.shape[0], "m": t.shape[0], "ulps": ulps,
+    n_valid, m_valid = int(qm.sum()), int(tm.sum())
+    stats = {"case": name, "n": q.shape[0], "m": t.shape[0], "n_valid": n_valid,
+             "m_valid": m_valid, "valid_pairs": n_valid * m_valid, "ulps": ulps,
              "max_abs_err": float(np.abs(g[valid] - r[valid]).max(initial=0.0))}
+    if launches:
+        stats["splits"], stats["chunk"] = plan_of(q, qm, t, tm)
     if timed:
-        stats["kernel_ms"] = cuda_ms(lambda: knn2_sqdists(q, qm, t, tm))
-        stats["plain_ms"] = cuda_ms(lambda: knn2_sqdists_plain(q, qm, t, tm), reps=1)
-        stats["library_ms"] = library_knn2_ms(q, qm, t, tm)
+        stats["kernel_ms"] = cuda_ms(lambda: knn2_sqdists(q, qm, t, tm), reps=5)
+        stats["knn2_kernels_device_ms"], stats["torch_ops_device_ms"] = knn2_device_ms(
+            lambda: knn2_sqdists(q, qm, t, tm))
         stats["bound_ms"], stats["bound_by"] = knn2_bound(qm, tm)
-    knn2_sqdists.launches = before      # comparison launches do not count
+        stats["bound_share"] = stats["bound_ms"] / stats["kernel_ms"]
+    if library:
+        stats["plain_ms"] = plain_ms
+        stats["library_ms"] = library_knn2_ms(q, qm, t, tm)
+    knn2_sqdists.launches, knn2_sqdists.merges = before   # comparison launches do not count
     return stats
+
+
+def sweep_r(name, q, qm, t, tm):
+    """Kernel ms for each built queries-a-thread count R, each equal at 0
+    ulps to the planned route's result (R = knn2._R), which
+    ``compare_knn2`` holds to the plain version."""
+    import torch
+
+    from ltm_torch.kernels import knn2
+
+    before = knn2.knn2_sqdists.launches, knn2.knn2_sqdists.merges
+    ref = knn2.knn2_sqdists(q, qm, t, tm).cpu().numpy()
+    out = {}
+    for r in (4, 8, 16):
+        got = knn2._knn2_cuda(q, qm, t, tm, r=r)
+        torch.cuda.synchronize()
+        if ulps_apart(got.cpu().numpy(), ref) > 0:
+            raise AssertionError(f"{name}: R={r} differs from R={knn2._R}")
+        out[r] = {"ms": cuda_ms(lambda: knn2._knn2_cuda(q, qm, t, tm, r=r), reps=3),
+                  "splits": plan_of(q, qm, t, tm, r)[0],
+                  "ctas_per_sm": knn2._residency(q.device.index, r)[1]}
+    knn2.knn2_sqdists.launches, knn2.knn2_sqdists.merges = before
+    return {"case": name, "r_sweep": out}
 
 
 def km_scale_case(rng, n=16385, m=300_000):
@@ -140,6 +213,49 @@ def km_scale_case(rng, n=16385, m=300_000):
     t = (g * 0.05 + [1000.0, -700.0, 3.0] + rng.normal(0, 0.01, (m, 3))).astype(np.float32)
     q = (t[rng.choice(m, n)] + rng.normal(0, 0.15, (n, 3))).astype(np.float32)
     return q, rng.uniform(size=n) > 0.2, t, rng.uniform(size=m) > 0.2
+
+
+def sass_hot_blocks(lib_path):
+    """The hot block of each ``knn2_scan<R>`` in the built library, from
+    ``cuobjdump -sass``: the basic block with the most FFMA, which is one
+    group's fast path (its 32 pairs' arithmetic, their OR-ed top-2 test and
+    the branch).  Instructions, pairs (one FMUL each), instructions a pair
+    and the opcode counts.  The full dump goes to ``chiprun_out/knn2.sass``."""
+    exe = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(exe):
+        return {"cuobjdump": "not found"}
+    text = subprocess.run([exe, "-sass", lib_path], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "knn2.sass"), "w") as f:
+        f.write(text)
+    result = {}
+    for func in re.split(r"\n\s*Function : ", text)[1:]:
+        m = re.search(r"knn2_scanILi(\d+)E", func.split("\n", 1)[0])
+        if not m:
+            continue
+        blocks, cur = [], []
+        for line in func.splitlines():
+            if re.match(r"\s*\.L_x_\d+:", line):
+                blocks.append(cur)
+                cur = []
+                continue
+            ins = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)", line)
+            if not ins:
+                continue
+            cur.append(ins.group(1))
+            if ins.group(1).split(".")[0] in ("BRA", "EXIT", "RET"):
+                blocks.append(cur)
+                cur = []
+        blocks.append(cur)
+        hot = max(blocks, key=lambda b: sum(op.startswith("FFMA") for op in b))
+        ops = collections.Counter(op.split(".")[0] for op in hot)
+        pairs = ops["FMUL"]
+        result[f"knn2_scan<{m.group(1)}>"] = {
+            "instructions": len(hot), "pairs": pairs,
+            "per_pair": len(hot) / pairs if pairs else None, "ops": dict(ops)}
+    return result
 
 
 def device_profile(fn, top=8):
@@ -177,65 +293,91 @@ def set_difference(a: np.ndarray, b: np.ndarray, tol: float = 1e-4) -> int:
     return int(np.isinf(da).sum() + np.isinf(db).sum())
 
 
-def main() -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 2
-    t_start = time.perf_counter()
-    from ltm_torch.core.config import RemovertConfig
+def phase_build():
+    """Phase 1: build every kernel, print the compiler's report and the
+    scan's hot blocks."""
     from ltm_torch.io import native
-    from ltm_torch.io.synthetic import synth_session
-    from ltm_torch.kernels._build import build_all
-    from ltm_torch.kernels.knn2 import knn2_sqdists
-    from ltm_torch.removert import Removerter, RemovertInput
-    from ltm_torch.removert.pipeline import MASK_NAMES
-    from ltm_torch.utils import reset_slot_counts, reset_stage_times, slot_counts, stage_times
+    from ltm_torch.kernels import _build
 
-    dev = torch.device("cuda")
-    card = card_line()
-    kind = torch.cuda.get_device_name(0)
-
-    # ---- phase 1: device and build --------------------------------------
-    log(f"[1] card: {card} | torch {torch.__version__} | CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    logs = build_all()
+    logs = _build.build_all()
     log(f"[1] kernels built in {time.perf_counter() - t0:.2f} s: {sorted(logs) or 'cached'}")
     for name, text in logs.items():
         log(f"[1] nvcc {name}.cu:\n{text.strip()}")
+    log(f"[1] knn2 hot blocks (cuobjdump -sass): "
+        f"{json.dumps(sass_hot_blocks(_build._lib_path('knn2')))}")
     log(f"[1] native/libltm_native.so loaded: {native.available()}"
         + ("" if native.available() else " (host voxels: first point per voxel)"))
 
-    # ---- phase 2: kernel vs plain on the card ---------------------------
+
+def phase_kernel_cases(dev):
+    """Phase 2: the kernel against its plain version on the card, on cases
+    that reach every route of the wrapper.  Returns the km-scale stats."""
+    import torch
+
+    from ltm_torch.kernels import knn2
+
+    def on_card(*arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+
     rng = np.random.default_rng(0)
+    per_cta = knn2._R * knn2._THREADS
     q = rng.normal(size=(700, 3)).astype(np.float32) * 5
     t = rng.normal(size=(1500, 3)).astype(np.float32) * 5
     qm = np.ones(700, bool)
     qm[13] = False
     cases = [("masked", q, qm, t, rng.uniform(size=1500) > 0.2)]
     td = np.tile(np.array([[1.0, 0, 0], [1.0, 0, 0], [5.0, 0, 0]], np.float32), (200, 1))[:512]
-    cases.append(("duplicates", np.zeros((8, 3), np.float32), np.ones(8, bool), td, np.ones(512, bool)))
+    cases.append(("duplicates", np.zeros((8, 3), np.float32), np.ones(8, bool), td,
+                  np.ones(512, bool)))
+    # few queries, many targets: the plan splits the targets
+    ts = rng.uniform(-50, 50, (400_000, 3)).astype(np.float32)
+    cases.append(("split_heavy", rng.uniform(-50, 50, (300, 3)).astype(np.float32),
+                  np.ones(300, bool), ts, rng.uniform(size=400_000) > 0.1))
+    # the nearest target, duplicated at compacted positions chunk-1 and chunk
+    tb = rng.uniform(100, 200, (200_000, 3)).astype(np.float32)
+    qb, qbm = np.zeros((64, 3), np.float32), np.ones(64, bool)
+    splits, chunk = plan_of(*on_card(qb, qbm, tb, np.ones(200_000, bool)))
+    if splits < 2:
+        raise AssertionError(f"split_boundary: the plan does not split ({splits})")
+    tb[[chunk - 1, chunk]] = [2.0, 2.0, 0.0]
+    cases.append(("split_boundary", qb, qbm, tb, np.ones(200_000, bool)))
+    cases.append(("no_valid_query", q, np.zeros(700, bool), t, np.ones(1500, bool)))
+    cases.append(("no_valid_target", q, qm, t, np.zeros(1500, bool)))
+    one = np.zeros(1500, bool)
+    one[777] = True
+    cases.append(("one_valid_target", q, qm, t, one))
+    n_rag = 3 * per_cta + 17
+    cases.append(("ragged_queries", rng.normal(size=(n_rag + 40, 3)).astype(np.float32) * 5,
+                  np.arange(n_rag + 40) < n_rag, t, np.ones(1500, bool)))
     cases.append(("km_scale",) + km_scale_case(rng))
+    km = None
     for name, *arrays in cases:
-        args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
-        st = compare_knn2(name, *args, timed=(name == "km_scale"))
-        if name == "duplicates" and not np.allclose(
-                knn2_sqdists(*args).cpu().numpy(), 1.0, atol=1e-6):
+        args = on_card(*arrays)
+        launches = int(arrays[1].any() and arrays[3].any())
+        st = compare_knn2(name, *args, timed=(name == "km_scale"), launches=launches)
+        got = knn2.knn2_sqdists(*args).cpu().numpy()
+        if name == "duplicates" and not np.allclose(got, 1.0, atol=1e-6):
             raise AssertionError("duplicate targets must count twice")
+        if name == "split_boundary" and not np.all(got == np.float32(8.0)):
+            raise AssertionError("a duplicate across a split boundary must count twice")
+        if name.startswith("no_valid") and not np.all(got == np.float32(1e30)):
+            raise AssertionError(f"{name}: rows must be 1e30")
+        if name == "one_valid_target" and not np.all(got[:, 1] == np.float32(1e30)):
+            raise AssertionError("one valid target: slot 2 must be 1e30")
         log(f"[2] {json.dumps(st)}")
-    knn2_sqdists.launches = 0
+        if name == "km_scale":
+            km = st
+            log(f"[2] {json.dumps(sweep_r(name, *args))}")
+    knn2.knn2_sqdists.launches = knn2.knn2_sqdists.merges = 0
+    return km
 
-    # ---- phase 3: card vs CPU on a small survey --------------------------
-    def workload(n_kf, n_pts, traj):
-        r = np.random.default_rng(0)
-        c_scans, c_poses = synth_session(r, n_kf, n_pts, traj=traj, phase=0.0)
-        q_scans, q_poses = synth_session(r, n_kf, n_pts, traj=traj, phase=0.25)
-        return RemovertInput(scans=c_scans, poses=c_poses), RemovertInput(scans=q_scans, poses=q_poses)
 
-    cfg = RemovertConfig()
-    cfg.downsample_voxel_size = 0.1
-    cfg.use_chunk_knn = False      # the chunked kNN is ported in a later slice
+def phase_card_vs_cpu(cfg):
+    """Phase 3: ``Removerter.run`` on a small survey, CPU against card."""
+    from ltm_torch.removert import Removerter
+    from ltm_torch.removert.pipeline import MASK_NAMES
+
     small = workload(4, 6000, 300.0)
     res_cpu = Removerter(cfg, device="cpu").run(*small)
     res_gpu = Removerter(cfg, device="cuda").run(*small)
@@ -249,30 +391,70 @@ def main() -> int:
                                  f"(cpu {len(a)}, cuda {len(b)})")
     log(f"[3] card vs CPU, [cpu, cuda, symmetric difference] per set: {json.dumps(counts)}")
 
-    # ---- phase 4: full width on the card --------------------------------
+
+def workload(n_kf, n_pts, traj):
+    from ltm_torch.io.synthetic import synth_session
+    from ltm_torch.removert import RemovertInput
+
+    r = np.random.default_rng(0)
+    c_scans, c_poses = synth_session(r, n_kf, n_pts, traj=traj, phase=0.0)
+    q_scans, q_poses = synth_session(r, n_kf, n_pts, traj=traj, phase=0.25)
+    return RemovertInput(scans=c_scans, poses=c_poses), RemovertInput(scans=q_scans, poses=q_poses)
+
+
+KNN2_CALLS = ("full_width_nd", "full_width_pd", "full_width_promotion")
+
+
+def phase_full_width(cfg):
+    """Phase 4: the full-width workload, warm-up (recording the knn2 calls)
+    then three timed runs and one profiled run; then each recorded call
+    against the plain version.  Returns the per-call stats and the last
+    timed run's launch counts."""
+    import torch
+
+    import ltm_torch.kernels.knn as knn_mod
+    from ltm_torch.kernels.knn2 import knn2_sqdists
+    from ltm_torch.removert import Removerter
+    from ltm_torch.removert.pipeline import MASK_NAMES
+    from ltm_torch.utils import reset_slot_counts, reset_stage_times, slot_counts, stage_times
+
     os.environ["LTM_SYNC_STAGES"] = "1"   # stage walls include their device work
     full = workload(48, 120_000, 1200.0)
     rm = Removerter(cfg, device="cuda")
+    calls = []
+
+    def recording(*args):
+        calls.append(args)
+        return knn2_sqdists(*args)
+
     runs = []
-    for i in range(4):                     # run 0 warms up
+    for i in range(4):                     # run 0 warms up and records the calls
         if i == 1:
             torch.cuda.reset_peak_memory_stats()
         reset_stage_times()
         reset_slot_counts()
         torch.cuda.synchronize()
-        knn2_sqdists.launches = 0
-        t0 = time.perf_counter()
-        result = rm.run(*full)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = knn2_sqdists.launches
-        if launches <= 0:
-            raise AssertionError("the full-width run never launched the knn2 kernel")
+        knn2_sqdists.launches = knn2_sqdists.merges = 0
+        knn_mod.knn2_sqdists = recording if i == 0 else knn2_sqdists
+        try:
+            t0 = time.perf_counter()
+            result = rm.run(*full)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            knn_mod.knn2_sqdists = knn2_sqdists
+        launches, merges = knn2_sqdists.launches, knn2_sqdists.merges
+        if launches <= 0 or merges <= 0:
+            raise AssertionError(f"the full-width run launched the knn2 scan {launches} and "
+                                 f"the merge {merges} times; both must run")
         n_kf = result.central.num_keyframes + result.query.num_keyframes
         runs.append({"run": i, "wall_s": wall, "keyframes_per_s": n_kf / wall,
-                     "knn2_launches": launches, "stages_s": stage_times(),
-                     "map_slots_per_stage": slot_counts()})
+                     "knn2_launches": launches, "knn2_merge_launches": merges,
+                     "stages_s": stage_times(), "map_slots_per_stage": slot_counts()})
         log(f"[4] {json.dumps(runs[-1])}")
+    if len(calls) != len(KNN2_CALLS):
+        raise AssertionError(f"the pipeline made {len(calls)} knn2 calls, expected ND, PD "
+                             f"and the weak->strong promotion")
     sizes = {name: int(result.masks[name].sum()) for name in MASK_NAMES}
     for name in ("static_c", "static_q", "nd", "pd", "updated"):
         if sizes[name] == 0:
@@ -292,30 +474,64 @@ def main() -> int:
         "map_capacity": [result.central.map_xyz.shape[0], result.query.map_xyz.shape[0]],
         "set_sizes": sizes,
         "knn2_launches_per_run": [r["knn2_launches"] for r in timed],
+        "knn2_merge_launches_per_run": [r["knn2_merge_launches"] for r in timed],
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
     }
     log(f"[4] {json.dumps(summary)}")
     log(f"[4] profiled run: {json.dumps(device_profile(lambda: rm.run(*full)))}")
 
-    # the kernel at the main path's shapes: the ND kNN-diff call (central
-    # map's eligible points against the query map's static points)
-    c, qs = result.central, result.query
-    args = (c.map_xyz, c.masks["static"] & c.masks["proj_static"], qs.map_xyz, qs.masks["static"])
-    st = compare_knn2("full_width_nd", *args, timed=True)
-    log(f"[4] {json.dumps(st)}")
+    # the kernel at the main path's three call shapes, as the pipeline made them
+    stats = []
+    for name, args in zip(KNN2_CALLS, calls):
+        st = compare_knn2(name, *args, timed=True, library=(name == "full_width_nd"))
+        stats.append(st)
+        log(f"[4] {json.dumps(st)}")
+    log(f"[4] {json.dumps(sweep_r('full_width_nd', *calls[0]))}")
+    return stats, timed[-1]
 
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    from ltm_torch.core.config import RemovertConfig
+
+    dev = torch.device("cuda")
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    log(f"[1] card: {card} | torch {torch.__version__} | CUDA {torch.version.cuda}")
+    phase_build()
+    km = phase_kernel_cases(dev)
+
+    cfg = RemovertConfig()
+    cfg.downsample_voxel_size = 0.1
+    cfg.use_chunk_knn = False      # the chunked kNN is ported in a later slice
+    phase_card_vs_cpu(cfg)
+    calls, last_run = phase_full_width(cfg)
+
+    nd = calls[0]
     kernels = [{
         "name": "knn2_sqdists",
         "route": "cuda",
+        "route_kernels": ["knn2_scan<R> (queries x target split)",
+                          "knn2_merge (partial top-2s, when the targets split)"],
         "source": "ltm_torch/csrc/knn2.cu",
         "replaces": "ltm/kernels/pallas_knn.py:95",
-        "launches": timed[-1]["knn2_launches"],
-        "max_abs_err": st["max_abs_err"],
-        "ms": st["kernel_ms"],
-        "plain_ms": st["plain_ms"],
-        "bound_ms": st["bound_ms"],
-        "bound_by": st["bound_by"],
-        "library_ms": st["library_ms"],
+        "launches": last_run["knn2_launches"],
+        "merge_launches": last_run["knn2_merge_launches"],
+        "max_abs_err": max(st["max_abs_err"] for st in calls),
+        "ms": nd["kernel_ms"],
+        "plain_ms": nd["plain_ms"],
+        "bound_ms": nd["bound_ms"],
+        "bound_by": nd["bound_by"],
+        "library_ms": nd["library_ms"],
+        "per_launch": [{k: st[k] for k in ("case", "valid_pairs", "splits", "kernel_ms",
+                                           "bound_ms", "bound_by")} for st in calls],
+        "km_scale_ms": km["kernel_ms"],
+        "km_scale_bound_ms": km["bound_ms"],
     }]
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

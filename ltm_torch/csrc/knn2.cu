@@ -4,106 +4,268 @@
 // (body _kernel): for each valid query, the squared distances to its two
 // nearest valid targets, ascending.  Invalid queries get 1e30 rows; fewer
 // than two valid targets pads with 1e30; a duplicated target counts twice.
+// Every distance is fma(dz, dz, fma(dy, dy, dx*dx)) on the ORIGINAL
+// coordinates, in the order XLA's CPU reduction gives the pipeline's exact
+// re-score (ltm/kernels/knn.py:111-113); the _rn intrinsics fix every
+// rounding (nvcc can neither contract nor split them), so each distance is
+// the float32 value the plain PyTorch version computes.
 //
-// Design (simple and exact first):
-//   * one thread per query, 256 threads a block; the block stages tiles of
-//     1024 targets in shared memory as float4 (an invalid target is staged
-//     at +inf, so its distance is +inf and never enters the top 2);
-//   * each thread keeps a running top-2 in registers; an equal value goes
-//     into slot 2, so duplicates count twice;
-//   * a block whose queries are all invalid writes 1e30 and exits at once
-//     (the pipeline's query sets are the eligible subsets of a padded map).
-//   * distances use the direct form (qx-tx)^2 + (qy-ty)^2 + (qz-tz)^2 on the
-//     ORIGINAL coordinates, in the order XLA's CPU reduction gives the
-//     pipeline's exact re-score (ltm/kernels/knn.py:111-113):
-//     fma(dz, dz, fma(dy, dy, dx*dx)).  The _rn intrinsics fix every
-//     rounding (nvcc can neither contract nor split them), so each distance
-//     is the float32 value the plain PyTorch version computes.  No
-//     recentring, no extent gate and no re-score pass are needed, because
-//     nothing is selected on an inexact |q|^2+|t|^2-2q.t form.
+// What bounds it: operations on the VALID pairs.  A pair costs 3 FADD,
+// 1 FMUL and 2 FFMA (8 FP32 flops, an FMA counted as two: 67 TFLOP/s on
+// an H100 SXM), plus its share of the top-2 test.  Each of those takes an
+// issue slot, so a loop of ~7 slots a pair tops out near 4/7 of the flop
+// bound.  The bytes are tiny (each point read once, each row written once).
 //
-// Bound: N_valid * M_valid pairs x 8 float32 operations (3 sub, 1 mul,
-// 2 FMA counted as two each) plus two compares, on the non-tensor FP32
-// units (67 TFLOP/s peak on an H100 SXM, which counts an FMA as two).
-// The bytes are tiny by comparison (each point read once: 13 B; each
-// output 8 B), so the kernel is bound by operations.
+// What the design does about it:
+//   1. Only valid points enter.  knn2_compact writes the valid targets
+//      into one float4 (x, y, z, 0) array, padded with +inf points to whole
+//      tiles, and the valid queries into an index list, from the masks'
+//      prefix sums (torch.cumsum in the wrapper, whose one host sync reads
+//      the two counts); the scan writes each result row through that index.
+//      No pair with an invalid point is ever scored.
+//   2. R queries a thread (R = 4, 8 or 16, kept in registers with their
+//      running top-2s).  Each target read from shared memory (a broadcast
+//      LDS.128) serves R pairs.  The top-2 test is one FSETP a pair, OR-ed
+//      over a group of 32 pairs (kGroup targets x R queries) with a single
+//      branch; the update (3 FMNMX a pair, no branch, so a warp whose
+//      queries improve at different targets does not diverge) runs only
+//      when some pair beats its slot 2, which becomes rare once the lists
+//      warm up.  An empty query slot has slot 2 at -inf, so it never passes.
+//   3. Target splits when the query grid alone would not fill the card.
+//      The wrapper's launch plan (_plan) gives S splits; CTA (x, s) scans
+//      query block x against the s-th contiguous chunk of targets and
+//      writes a partial top-2 to scratch, and knn2_merge folds the S
+//      partials of each query through the same update and writes the row.
+//      The merge is exact: the two smallest of a multiset do not depend on
+//      the order they are taken in, and ties go to slot 2, so duplicates
+//      across a split boundary still count twice.
+//   4. Double-buffered tiles: cp.async copies the next 16-byte-aligned
+//      tile into the other half of a two-stage ring while the current one
+//      is scanned, with one __syncthreads() a tile and no registers spent
+//      on the copy.
 //
-// Making it fast is later work: double-buffered shared-memory tiles,
-// several queries per thread to cut shared-memory reads per pair, and a
-// 3xTF32 or split-bf16 tensor-core selection followed by an exact re-score
-// of the picks.
+// Why not tensor cores: the TPU kernel selects on |q|^2+|t|^2-2q.t on the
+// MXU and re-scores.  That form loses ~|x|^2*eps to cancellation; queries
+// and targets here come in map order, not spatially sorted, so recentring
+// a tile does not bound |x|, and at |x| ~ 600 m the error (~0.02 m^2) is
+// the size of the pipeline's 0.04 m^2 kNN threshold.  A tensor-core
+// selection is worth having only over spatially sorted tiles (the chunked
+// kNN); this kernel stays on the FP32 cores with the exact direct form.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 1024;
+constexpr int kThreads = 128;   // 4 warps: one per scheduler
+constexpr int kTile = 512;      // targets per ring stage (8 KB)
+constexpr int kPairs = 32;      // pairs a thread scores between two top-2 tests
 constexpr float kBig = 1e30f;
 
-__global__ void __launch_bounds__(kThreads)
-knn2_kernel(const float* __restrict__ q, const bool* __restrict__ qmask,
-            const float* __restrict__ t, const bool* __restrict__ tmask,
-            float* __restrict__ out, int n, int m) {
-  __shared__ float4 tile[kTile];
-  const float inf = __int_as_float(0x7f800000);
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const bool active = i < n && qmask[i];
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (active) {
-    qx = q[3 * (size_t)i];
-    qy = q[3 * (size_t)i + 1];
-    qz = q[3 * (size_t)i + 2];
+__device__ __forceinline__ float sqdist(float qx, float qy, float qz, float4 p) {
+  const float dx = __fsub_rn(qx, p.x);
+  const float dy = __fsub_rn(qy, p.y);
+  const float dz = __fsub_rn(qz, p.z);
+  return __fmaf_rn(dz, dz, __fmaf_rn(dy, dy, __fmul_rn(dx, dx)));
+}
+
+// Running top-2, without branches (3 FMNMX): an equal value goes into
+// slot 2, so duplicates count twice.  In the scan it is a group's slow
+// path, which a warp takes when any of its 32 x R queries improves, so it
+// runs often while the lists warm up and must not diverge.
+__device__ __forceinline__ void push2(float d, float& b1, float& b2) {
+  b2 = fminf(b2, fmaxf(b1, d));
+  b1 = fminf(b1, d);
+}
+
+__device__ __forceinline__ void load_tile(float4* dst, const float4* src) {
+  for (int j = threadIdx.x; j < kTile; j += kThreads) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst + j));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src + j));
   }
-  float b1 = kBig, b2 = kBig;
-  if (__syncthreads_or(active)) {
-    for (int base = 0; base < m; base += kTile) {
-      const int cnt = min(kTile, m - base);
-      for (int j = threadIdx.x; j < cnt; j += kThreads) {
-        const size_t g = (size_t)base + j;
-        tile[j] = tmask[g] ? make_float4(t[3 * g], t[3 * g + 1], t[3 * g + 2], 0.f)
-                           : make_float4(inf, inf, inf, 0.f);
-      }
-      __syncthreads();
-      if (active) {
-#pragma unroll 8
-        for (int j = 0; j < cnt; ++j) {
-          const float4 p = tile[j];
-          const float dx = __fsub_rn(qx, p.x);
-          const float dy = __fsub_rn(qy, p.y);
-          const float dz = __fsub_rn(qz, p.z);
-          const float d = __fmaf_rn(dz, dz, __fmaf_rn(dy, dy, __fmul_rn(dx, dx)));
-          if (d < b2) {
-            if (d < b1) {
-              b2 = b1;
-              b1 = d;
-            } else {
-              b2 = d;
-            }
-          }
-        }
-      }
-      __syncthreads();
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// q (n,3) original queries, qidx (n_valid,) their rows, t (splits*chunk)
+// compacted float4 targets.  CTA (x, s): queries x*R*kThreads + r*kThreads
+// + threadIdx.x, r < R, against targets [s*chunk, (s+1)*chunk).  Writes
+// out rows through qidx when part is null, else part[s*n_valid + i].
+template <int R>
+__global__ void __launch_bounds__(kThreads, R >= 16 ? 3 : (R == 8 ? 5 : 6))
+knn2_scan(const float* __restrict__ q, const int* __restrict__ qidx, int n_valid,
+          const float4* __restrict__ t, int chunk, float2* __restrict__ part,
+          float* __restrict__ out) {
+  constexpr int kGroup = kPairs / R;   // targets a group
+  __shared__ __align__(16) float4 ring[2][kTile];
+  const float4* ts = t + static_cast<size_t>(blockIdx.y) * chunk;
+  const int base = blockIdx.x * (R * kThreads) + threadIdx.x;
+  float qx[R], qy[R], qz[R], b1[R], b2[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = base + r * kThreads;
+    qx[r] = qy[r] = qz[r] = 0.f;
+    b1[r] = kBig;
+    b2[r] = kBig;
+    if (i < n_valid) {
+      const size_t k = 3 * static_cast<size_t>(qidx[i]);
+      qx[r] = q[k];
+      qy[r] = q[k + 1];
+      qz[r] = q[k + 2];
+    } else {
+      b2[r] = -__int_as_float(0x7f800000);   // empty slot: never passes
     }
   }
-  if (i < n) {
-    out[2 * (size_t)i] = active ? b1 : kBig;
-    out[2 * (size_t)i + 1] = active ? b2 : kBig;
+  const int n_tiles = chunk / kTile;
+  load_tile(ring[0], ts);
+  for (int k = 0; k < n_tiles; ++k) {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();   // tile k is in for all threads, and all are done with tile k-1
+    if (k + 1 < n_tiles) load_tile(ring[(k + 1) & 1], ts + static_cast<size_t>(k + 1) * kTile);
+    const float4* tile = ring[k & 1];
+#pragma unroll 2
+    for (int j = 0; j < kTile; j += kGroup) {
+      float d[kGroup][R];
+      bool hit = false;
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) {
+        const float4 p = tile[j + u];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          d[u][r] = sqdist(qx[r], qy[r], qz[r], p);
+          hit |= d[u][r] < b2[r];
+        }
+      }
+      if (hit) {
+#pragma unroll
+        for (int u = 0; u < kGroup; ++u) {
+#pragma unroll
+          for (int r = 0; r < R; ++r) push2(d[u][r], b1[r], b2[r]);
+        }
+      }
+    }
   }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = base + r * kThreads;
+    if (i >= n_valid) continue;
+    if (part != nullptr) {
+      part[static_cast<size_t>(blockIdx.y) * n_valid + i] = make_float2(b1[r], b2[r]);
+    } else {
+      const size_t o = 2 * static_cast<size_t>(qidx[i]);
+      out[o] = b1[r];
+      out[o + 1] = b2[r];
+    }
+  }
+}
+
+// Compaction, one thread an element: qidx[q_rank[i]-1] = i for a valid
+// query and a 1e30 out row for an invalid one; t4[t_rank[j]-1] = (x, y, z,
+// 0) for a valid target, and +inf points in [m_valid, m_pad).  The ranks
+// are the masks' inclusive prefix sums.
+__global__ void knn2_compact(const bool* __restrict__ qmask, const long long* __restrict__ q_rank,
+                             int n, const bool* __restrict__ tmask,
+                             const long long* __restrict__ t_rank, const float* __restrict__ t,
+                             int m, int m_valid, int m_pad, int* __restrict__ qidx,
+                             float4* __restrict__ t4, float* __restrict__ out) {
+  const float inf = __int_as_float(0x7f800000);
+  const int end = max(n, max(m, m_pad));
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < end; i += gridDim.x * blockDim.x) {
+    if (i < n) {
+      if (qmask[i]) {
+        qidx[q_rank[i] - 1] = i;
+      } else {
+        out[2 * static_cast<size_t>(i)] = kBig;
+        out[2 * static_cast<size_t>(i) + 1] = kBig;
+      }
+    }
+    if (i < m && tmask[i]) {
+      const size_t k = 3 * static_cast<size_t>(i);
+      t4[t_rank[i] - 1] = make_float4(t[k], t[k + 1], t[k + 2], 0.f);
+    }
+    if (i >= m_valid && i < m_pad) t4[i] = make_float4(inf, inf, inf, 0.f);
+  }
+}
+
+// part (splits, n_valid) partial top-2s -> out rows through qidx.
+__global__ void knn2_merge(const float2* __restrict__ part, const int* __restrict__ qidx,
+                           int n_valid, int splits, float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_valid) return;
+  float b1 = kBig, b2 = kBig;
+#pragma unroll 4
+  for (int s = 0; s < splits; ++s) {
+    const float2 p = part[static_cast<size_t>(s) * n_valid + i];
+    push2(p.x, b1, b2);
+    push2(p.y, b1, b2);
+  }
+  const size_t o = 2 * static_cast<size_t>(qidx[i]);
+  out[o] = b1;
+  out[o + 1] = b2;
+}
+
+template <int R>
+int launch_scan(dim3 grid, cudaStream_t stream, const float* q, const int* qidx,
+                int n_valid, const float4* t, int chunk, float2* part, float* out) {
+  knn2_scan<R><<<grid, kThreads, 0, stream>>>(q, qidx, n_valid, t, chunk, part, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q (n,3) f32, qmask (n,) bool, t (m,3) f32, tmask (m,) bool, out (n,2) f32,
-// all contiguous on the current device; launches on `stream` and returns
-// cudaGetLastError() (0 on success).  Does not synchronise.
-extern "C" int ltm_knn2_sqdists(const float* q, const bool* qmask, const float* t,
-                                const bool* tmask, float* out, int n, int m,
-                                void* stream) {
-  if (n <= 0) return 0;
-  const int blocks = (n + kThreads - 1) / kThreads;
-  knn2_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      q, qmask, t, tmask, out, n, m);
+// Block size and tile length; the wrapper's launch plan must use the same.
+extern "C" void ltm_knn2_config(int* threads, int* tile) {
+  *threads = kThreads;
+  *tile = kTile;
+}
+
+// Resident CTAs of knn2_scan<r> on one SM of the current device (0 for an
+// r that is not built), or a negative CUDA error.
+extern "C" int ltm_knn2_ctas_per_sm(int r) {
+  int n = 0;
+  cudaError_t rc = cudaErrorInvalidValue;
+  switch (r) {
+    case 4: rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, knn2_scan<4>, kThreads, 0); break;
+    case 8: rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, knn2_scan<8>, kThreads, 0); break;
+    case 16: rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, knn2_scan<16>, kThreads, 0); break;
+    default: return 0;
+  }
+  return rc == cudaSuccess ? n : -static_cast<int>(rc);
+}
+
+// q (n,3) f32 queries, qmask (n,) bool, q_rank (n,) i64 its inclusive
+// prefix sum, n_valid = q_rank[n-1] > 0; t (m,3), tmask, t_rank likewise,
+// m_valid > 0; chunk a multiple of the tile, splits chunks.  Scratch the
+// caller allocates: qidx (n_valid,) i32, t4 (splits*chunk,) float4, part
+// (splits, n_valid) float2 when splits > 1, else null.  out (n,2) f32.
+// Launches the compaction, the scan with r queries a thread and, when
+// splits > 1, the merge on `stream`, checks cudaGetLastError() after each
+// and returns the first error (0 on success).  Does not synchronise.
+extern "C" int ltm_knn2_sqdists(const float* q, const bool* qmask, const long long* q_rank,
+                                int n, const float* t, const bool* tmask,
+                                const long long* t_rank, int m, int n_valid, int m_valid,
+                                int chunk, int splits, int r, int* qidx, void* t4, void* part,
+                                float* out, void* stream) {
+  if (n_valid <= 0 || n_valid > n || m_valid <= 0 || m_valid > m || chunk <= 0 ||
+      chunk % kTile != 0 || splits < 1 || splits > 65535 || (r != 4 && r != 8 && r != 16) ||
+      static_cast<long long>(splits) * chunk < m_valid || (splits > 1) != (part != nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float4* tv = static_cast<float4*>(t4);
+  float2* p2 = static_cast<float2*>(part);
+  const int m_pad = splits * chunk;
+  const int end = max(n, max(m, m_pad));
+  knn2_compact<<<min((end + 255) / 256, 4096), 256, 0, s>>>(
+      qmask, q_rank, n, tmask, t_rank, t, m, m_valid, m_pad, qidx, tv, out);
+  int rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  const dim3 grid((n_valid + r * kThreads - 1) / (r * kThreads), splits);
+  switch (r) {
+    case 4: rc = launch_scan<4>(grid, s, q, qidx, n_valid, tv, chunk, p2, out); break;
+    case 8: rc = launch_scan<8>(grid, s, q, qidx, n_valid, tv, chunk, p2, out); break;
+    default: rc = launch_scan<16>(grid, s, q, qidx, n_valid, tv, chunk, p2, out); break;
+  }
+  if (rc != 0 || splits == 1) return rc;
+  knn2_merge<<<(n_valid + 255) / 256, 256, 0, s>>>(p2, qidx, n_valid, splits, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,6 +5,11 @@ plain PyTorch version.
 
 ``knn2_sqdists`` runs the kernel for CUDA tensors and the plain version for
 CPU tensors; a CUDA call launches the kernel or raises, it never falls back.
+On the card the wrapper plans the launch (``_plan``: queries a thread, and
+how many target splits fill the card); a compaction kernel gathers the
+valid points, the scan kernel scores only valid pairs and a merge kernel
+folds the splits' partial top-2s.  ``_compact_plain`` and ``_merge_plain``
+are the plain versions of the compaction and the merge.
 Both compute every distance in the direct form ``(qx-tx)² + (qy-ty)² +
 (qz-tz)²`` on the original coordinates, as the FMA chain of
 ``projection.sumsq3`` (the order of ``ltm``'s exact re-score on the CPU), so
@@ -14,6 +19,7 @@ they agree bit for bit.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -81,46 +87,162 @@ def knn2_sqdists_plain(query_xyz, query_mask, target_xyz, target_mask):
     return out
 
 
+# ---- launch plan, compaction and merge (the kernel's Python side) --------
+
+_THREADS, _TILE = 128, 512   # kThreads, kTile of csrc/knn2.cu (checked when it loads)
+_R = 8                       # queries a thread
+_WAVES = 2                   # CTA waves the grid should reach before targets split
+
+
+def _plan(n_valid: int, m_valid: int, sms: int = 132, ctas_per_sm: int = 4, r: int = _R):
+    """Launch plan ``(R, threads, splits, tile)`` for ``n_valid`` valid
+    queries against ``m_valid`` valid targets (both > 0) on ``sms`` SMs
+    that each hold ``ctas_per_sm`` CTAs of the scan kernel.
+
+    One CTA takes ``R * threads`` queries.  When those CTAs make fewer than
+    ``_WAVES`` waves, the targets are cut into ``splits`` contiguous chunks
+    of whole tiles (each CTA scans one chunk and a merge kernel folds the
+    partial top-2s): the count in ``[s_min, 2 s_min]`` whose last wave is
+    the fullest, the smallest on ties, rounded so that no chunk is empty."""
+    q_ctas = -(-n_valid // (r * _THREADS))
+    wave = sms * ctas_per_sm
+    tiles = -(-m_valid // _TILE)
+    if q_ctas >= _WAVES * wave or tiles == 1:
+        return r, _THREADS, 1, _TILE
+
+    def no_empty(s):        # chunks of ceil(tiles / s) tiles, and how many that makes
+        return -(-tiles // -(-tiles // min(s, tiles)))
+
+    def last_wave_fill(s):
+        ctas = q_ctas * s
+        return ctas / (-(-ctas // wave) * wave)
+
+    s_min = -(-_WAVES * wave // q_ctas)
+    splits = max(sorted({no_empty(s) for s in range(s_min, 2 * s_min + 1)}), key=last_wave_fill)
+    return r, _THREADS, splits, _TILE
+
+
+def _split_len(m_valid: int, splits: int, tile: int) -> int:
+    """Targets in each of ``splits`` chunks: whole tiles covering ``m_valid``."""
+    tiles = -(-m_valid // tile)
+    return -(-tiles // splits) * tile
+
+
+def _compact_plain(query_mask, target_xyz, target_mask, m_pad: int, out):
+    """Plain version of the compaction kernel: ``(qidx, t4)``, the rows of
+    the valid queries in order (int32), and the valid targets in order as
+    ``(m_pad, 4)`` float32 rows ``(x, y, z, 0)``, padded with ``+inf``
+    points, whose distance to any query is ``+inf``; the invalid queries'
+    rows of ``out`` are set to 1e30 (the scan writes the others)."""
+    out[~query_mask] = _BIG
+    t4 = torch.full((m_pad, 4), torch.inf, dtype=torch.float32, device=target_xyz.device)
+    t4[:, 3] = 0.0
+    valid = target_xyz[target_mask]
+    t4[:valid.shape[0], :3] = valid
+    return torch.nonzero(query_mask).squeeze(1).to(torch.int32), t4
+
+
+def _merge_plain(part):
+    """Plain version of the merge kernel: ``(splits, n, 2)`` partial top-2s
+    to the ``(n, 2)`` two smallest of each query's ``2·splits`` values."""
+    rows = part.permute(1, 0, 2).reshape(part.shape[1], -1)
+    return torch.sort(rows, dim=1).values[:, :2]
+
+
 def knn2_sqdists(query_xyz, query_mask, target_xyz, target_mask):
     """(N, 2) squared distances to the two nearest valid targets, ascending.
 
     CUDA tensors launch ``csrc/knn2.cu`` on the current stream (and count
-    the launch in ``knn2_sqdists.launches``); CPU tensors take
-    :func:`knn2_sqdists_plain`."""
+    the scan in ``knn2_sqdists.launches``, the merge in
+    ``knn2_sqdists.merges``); CPU tensors take :func:`knn2_sqdists_plain`."""
     if query_xyz.device.type == "cpu":
         return knn2_sqdists_plain(query_xyz, query_mask, target_xyz, target_mask)
     _check(query_xyz, query_mask, target_xyz, target_mask)
     if query_xyz.device.type != "cuda":
         raise ValueError(f"knn2_sqdists runs on cuda or cpu, not {query_xyz.device}")
-    n, m = query_xyz.shape[0], target_xyz.shape[0]
-    if max(n, m) >= 2**31:
+    if max(query_xyz.shape[0], target_xyz.shape[0]) >= 2**31:
         raise ValueError("knn2 kernel takes fewer than 2^31 points a side")
-    tensors = [x.contiguous() for x in (query_xyz, query_mask, target_xyz, target_mask)]
-    out = torch.empty((n, 2), dtype=torch.float32, device=query_xyz.device)
-    if n == 0:
-        return out
+    return _knn2_cuda(query_xyz, query_mask, target_xyz, target_mask)
+
+
+knn2_sqdists.launches = 0   # scan kernel launches
+knn2_sqdists.merges = 0     # merge kernel launches (calls whose targets split)
+
+
+def _knn2_cuda(query_xyz, query_mask, target_xyz, target_mask, r: int = _R):
+    """The kernel route of :func:`knn2_sqdists` (inputs checked), with
+    ``r`` queries a thread: the masks' prefix sums and one host sync for the
+    two valid counts, then the compaction, the scan and, when the plan
+    splits the targets, the merge kernel.  No launch when either side has
+    no valid point."""
+    dev = query_xyz.device
+    n, m = query_xyz.shape[0], target_xyz.shape[0]
+    out = torch.empty((n, 2), dtype=torch.float32, device=dev)
+    n_valid = m_valid = 0
+    if n and m:
+        q_rank, t_rank = torch.cumsum(query_mask, 0), torch.cumsum(target_mask, 0)
+        n_valid, m_valid = torch.stack([q_rank[-1], t_rank[-1]]).tolist()
+    if n_valid == 0 or m_valid == 0:
+        return out.fill_(_BIG)
     lib = _lib()
-    with torch.cuda.device(query_xyz.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.ltm_knn2_sqdists(*(x.data_ptr() for x in tensors), out.data_ptr(),
-                                  n, m, stream)
+    with torch.cuda.device(dev):
+        splits, chunk = _device_plan(dev, n_valid, m_valid, r)
+        if splits * chunk >= 2**31:
+            raise ValueError("knn2 kernel: padded targets exceed 2^31")
+        qidx = torch.empty(n_valid, dtype=torch.int32, device=dev)
+        t4 = torch.empty((splits * chunk, 4), dtype=torch.float32, device=dev)
+        part = torch.empty((splits, n_valid, 2), dtype=torch.float32, device=dev) if splits > 1 else None
+        q, qm, t, tm = (x.contiguous() for x in (query_xyz, query_mask, target_xyz, target_mask))
+        rc = lib.ltm_knn2_sqdists(
+            q.data_ptr(), qm.data_ptr(), q_rank.data_ptr(), n, t.data_ptr(), tm.data_ptr(),
+            t_rank.data_ptr(), m, n_valid, m_valid, chunk, splits, r, qidx.data_ptr(),
+            t4.data_ptr(), None if part is None else part.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"knn2 kernel launch failed: "
                            f"{lib.ltm_cuda_error_string(rc).decode()} ({rc})")
     knn2_sqdists.launches += 1
+    if splits > 1:
+        knn2_sqdists.merges += 1
     return out
 
 
-knn2_sqdists.launches = 0
+def _device_plan(dev, n_valid: int, m_valid: int, r: int = _R):
+    """``(splits, chunk)`` of :func:`_plan` for the scan kernel with ``r``
+    queries a thread on the CUDA device ``dev``."""
+    _, _, splits, tile = _plan(n_valid, m_valid, *_residency(dev.index, r), r)
+    return splits, _split_len(m_valid, splits, tile)
 
 
+@functools.lru_cache(maxsize=None)
+def _residency(dev_index, r: int):
+    """(SMs, resident CTAs an SM) of the scan kernel with ``r`` queries a
+    thread on a CUDA device: what its registers and shared memory allow."""
+    with torch.cuda.device(dev_index):
+        ctas = _lib().ltm_knn2_ctas_per_sm(r)
+    sms = torch.cuda.get_device_properties(dev_index).multi_processor_count
+    if ctas <= 0:
+        raise RuntimeError(f"knn2 kernel: no resident CTA for R={r} ({ctas})")
+    return sms, ctas
+
+
+@functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     from ltm_torch.kernels._build import load_kernel
 
     lib = load_kernel("knn2")
-    p = ctypes.c_void_p   # pointers and the stream as c_void_p: no 32-bit truncation
-    lib.ltm_knn2_sqdists.argtypes = [p, p, p, p, p, ctypes.c_int, ctypes.c_int, p]
-    lib.ltm_knn2_sqdists.restype = ctypes.c_int
-    lib.ltm_cuda_error_string.argtypes = [ctypes.c_int]
+    p, i = ctypes.c_void_p, ctypes.c_int   # pointers and the stream as c_void_p: no 32-bit cut
+    lib.ltm_knn2_sqdists.argtypes = [p, p, p, i, p, p, p, i, i, i, i, i, i, p, p, p, p, p]
+    lib.ltm_knn2_sqdists.restype = i
+    lib.ltm_knn2_ctas_per_sm.argtypes = [i]
+    lib.ltm_knn2_ctas_per_sm.restype = i
+    lib.ltm_knn2_config.argtypes = [ctypes.POINTER(i), ctypes.POINTER(i)]
+    lib.ltm_knn2_config.restype = None
+    lib.ltm_cuda_error_string.argtypes = [i]
     lib.ltm_cuda_error_string.restype = ctypes.c_char_p
+    threads, tile = i(), i()
+    lib.ltm_knn2_config(ctypes.byref(threads), ctypes.byref(tile))
+    if (threads.value, tile.value) != (_THREADS, _TILE):
+        raise RuntimeError(f"csrc/knn2.cu has threads={threads.value}, tile={tile.value}; "
+                           f"the wrapper plans for {_THREADS}, {_TILE}")
     return lib
