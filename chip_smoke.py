@@ -9,15 +9,13 @@ It builds the hand-written CUDA kernels from ``ltm_torch/csrc`` (nvcc,
 sm_90a), then runs four phases, each of which raises on failure:
 
   1. device and build: the card, PyTorch/CUDA versions, kernel build time,
-     the ``-Xptxas -v`` report, and the hot block of each scan
-     instantiation read from ``cuobjdump -sass`` (full dump in
-     ``chiprun_out/knn2.sass``);
+     the ``-Xptxas -v`` report, and the scan kernel's hot block read from
+     ``cuobjdump -sass`` (full dump in ``chiprun_out/knn2.sass``);
   2. kernel vs plain: ``knn2_sqdists`` (CUDA) against ``knn2_sqdists_plain``
      on the card at 0 ulps, on a masked case, duplicate targets, duplicates
      straddling a target-split boundary, a split-heavy case, all queries
      invalid, no valid target, one valid target, a valid-query count that
-     is not a multiple of a CTA's queries, and a km-scale case (timed, with
-     a sweep of queries a thread);
+     is not a multiple of a CTA's queries, and a km-scale case (timed);
   3. card vs CPU: ``Removerter.run`` on a small synthetic survey on the CPU
      (plain versions) and on the card (kernels); the 14 named point sets
      agree within max(2, 1e-4·|set|) points;
@@ -28,6 +26,9 @@ sm_90a), then runs four phases, each of which raises on failure:
      every kernel of the path must launch in every timed run.  Each of the
      three recorded calls is then held to the plain version at 0 ulps and
      timed against its bound.
+
+Every timed call whose targets split is also run and timed with the plan
+held at one split, which must give the same bits.
 
 It prints one JSON object per kernel line, then the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Without a
@@ -115,34 +116,30 @@ def library_knn2_ms(q, qm, t, tm, chunk=1024) -> float:
     return cuda_ms(run, reps=1)
 
 
-def plan_of(q, qm, t, tm, r=None):
+def plan_of(q, qm, t, tm):
     """(splits, chunk) the wrapper plans for these inputs on this card."""
     from ltm_torch.kernels import knn2
 
-    return knn2._device_plan(q.device, int(qm.sum()), int(tm.sum()), r or knn2._R)
+    return knn2._device_plan(q.device, int(qm.sum()), int(tm.sum()))
 
 
-def knn2_device_ms(fn):
-    """One call of ``fn`` under ``torch.profiler``: device ms of the knn2
-    kernels (compaction, scan and merge) and of the torch ops it launched
-    (the masks' prefix sums and the count read)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def unsplit(fn):
+    """``fn()`` with the wrapper's launch plan held at one target split."""
+    from ltm_torch.kernels import knn2
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    ours = sum(e.self_device_time_total for e in events if "knn2_" in e.key)
-    rest = sum(e.self_device_time_total for e in events if "knn2_" not in e.key)
-    return ours / 1e3, rest / 1e3
+    plan = knn2._plan
+    knn2._plan = lambda *args: 1
+    try:
+        return fn()
+    finally:
+        knn2._plan = plan
 
 
 def compare_knn2(name, q, qm, t, tm, timed=False, library=False, launches=1):
     """Kernel vs plain on the card: 0 ulps, same decisions, and the expected
     number of scan launches (0 when a side has no valid point).  The plain
-    call is timed once, by CUDA events.  Returns stats."""
+    call is timed once, by CUDA events; a timed call whose targets split is
+    also timed unsplit, which must give the same bits.  Returns stats."""
     import torch
 
     from ltm_torch.kernels.knn2 import knn2_sqdists, knn2_sqdists_plain
@@ -171,8 +168,12 @@ def compare_knn2(name, q, qm, t, tm, timed=False, library=False, launches=1):
         stats["splits"], stats["chunk"] = plan_of(q, qm, t, tm)
     if timed:
         stats["kernel_ms"] = cuda_ms(lambda: knn2_sqdists(q, qm, t, tm), reps=5)
-        stats["knn2_kernels_device_ms"], stats["torch_ops_device_ms"] = knn2_device_ms(
-            lambda: knn2_sqdists(q, qm, t, tm))
+        if stats["splits"] > 1:
+            one = unsplit(lambda: knn2_sqdists(q, qm, t, tm)).cpu().numpy()
+            if ulps_apart(one, g) > 0:
+                raise AssertionError(f"{name}: one split and {stats['splits']} differ")
+            stats["unsplit_ms"] = unsplit(lambda: cuda_ms(lambda: knn2_sqdists(q, qm, t, tm),
+                                                          reps=5))
         stats["bound_ms"], stats["bound_by"] = knn2_bound(qm, tm)
         stats["bound_share"] = stats["bound_ms"] / stats["kernel_ms"]
     if library:
@@ -180,29 +181,6 @@ def compare_knn2(name, q, qm, t, tm, timed=False, library=False, launches=1):
         stats["library_ms"] = library_knn2_ms(q, qm, t, tm)
     knn2_sqdists.launches, knn2_sqdists.merges = before   # comparison launches do not count
     return stats
-
-
-def sweep_r(name, q, qm, t, tm):
-    """Kernel ms for each built queries-a-thread count R, each equal at 0
-    ulps to the planned route's result (R = knn2._R), which
-    ``compare_knn2`` holds to the plain version."""
-    import torch
-
-    from ltm_torch.kernels import knn2
-
-    before = knn2.knn2_sqdists.launches, knn2.knn2_sqdists.merges
-    ref = knn2.knn2_sqdists(q, qm, t, tm).cpu().numpy()
-    out = {}
-    for r in (4, 8, 16):
-        got = knn2._knn2_cuda(q, qm, t, tm, r=r)
-        torch.cuda.synchronize()
-        if ulps_apart(got.cpu().numpy(), ref) > 0:
-            raise AssertionError(f"{name}: R={r} differs from R={knn2._R}")
-        out[r] = {"ms": cuda_ms(lambda: knn2._knn2_cuda(q, qm, t, tm, r=r), reps=3),
-                  "splits": plan_of(q, qm, t, tm, r)[0],
-                  "ctas_per_sm": knn2._residency(q.device.index, r)[1]}
-    knn2.knn2_sqdists.launches, knn2.knn2_sqdists.merges = before
-    return {"case": name, "r_sweep": out}
 
 
 def km_scale_case(rng, n=16385, m=300_000):
@@ -216,7 +194,7 @@ def km_scale_case(rng, n=16385, m=300_000):
 
 
 def sass_hot_blocks(lib_path):
-    """The hot block of each ``knn2_scan<R>`` in the built library, from
+    """The hot block of ``knn2_scan`` in the built library, from
     ``cuobjdump -sass``: the basic block with the most FFMA, which is one
     group's fast path (its 32 pairs' arithmetic, their OR-ed top-2 test and
     the branch).  Instructions, pairs (one FMUL each), instructions a pair
@@ -230,10 +208,8 @@ def sass_hot_blocks(lib_path):
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "knn2.sass"), "w") as f:
         f.write(text)
-    result = {}
     for func in re.split(r"\n\s*Function : ", text)[1:]:
-        m = re.search(r"knn2_scanILi(\d+)E", func.split("\n", 1)[0])
-        if not m:
+        if "knn2_scan" not in func.split("\n", 1)[0]:
             continue
         blocks, cur = [], []
         for line in func.splitlines():
@@ -252,10 +228,9 @@ def sass_hot_blocks(lib_path):
         hot = max(blocks, key=lambda b: sum(op.startswith("FFMA") for op in b))
         ops = collections.Counter(op.split(".")[0] for op in hot)
         pairs = ops["FMUL"]
-        result[f"knn2_scan<{m.group(1)}>"] = {
-            "instructions": len(hot), "pairs": pairs,
-            "per_pair": len(hot) / pairs if pairs else None, "ops": dict(ops)}
-    return result
+        return {"instructions": len(hot), "pairs": pairs,
+                "per_pair": len(hot) / pairs if pairs else None, "ops": dict(ops)}
+    raise AssertionError("cuobjdump -sass shows no knn2_scan")
 
 
 def device_profile(fn, top=8):
@@ -295,7 +270,7 @@ def set_difference(a: np.ndarray, b: np.ndarray, tol: float = 1e-4) -> int:
 
 def phase_build():
     """Phase 1: build every kernel, print the compiler's report and the
-    scan's hot blocks."""
+    scan's hot block."""
     from ltm_torch.io import native
     from ltm_torch.kernels import _build
 
@@ -304,7 +279,7 @@ def phase_build():
     log(f"[1] kernels built in {time.perf_counter() - t0:.2f} s: {sorted(logs) or 'cached'}")
     for name, text in logs.items():
         log(f"[1] nvcc {name}.cu:\n{text.strip()}")
-    log(f"[1] knn2 hot blocks (cuobjdump -sass): "
+    log(f"[1] knn2_scan hot block (cuobjdump -sass): "
         f"{json.dumps(sass_hot_blocks(_build._lib_path('knn2')))}")
     log(f"[1] native/libltm_native.so loaded: {native.available()}"
         + ("" if native.available() else " (host voxels: first point per voxel)"))
@@ -368,7 +343,6 @@ def phase_kernel_cases(dev):
         log(f"[2] {json.dumps(st)}")
         if name == "km_scale":
             km = st
-            log(f"[2] {json.dumps(sweep_r(name, *args))}")
     knn2.knn2_sqdists.launches = knn2.knn2_sqdists.merges = 0
     return km
 
@@ -486,7 +460,6 @@ def phase_full_width(cfg):
         st = compare_knn2(name, *args, timed=True, library=(name == "full_width_nd"))
         stats.append(st)
         log(f"[4] {json.dumps(st)}")
-    log(f"[4] {json.dumps(sweep_r('full_width_nd', *calls[0]))}")
     return stats, timed[-1]
 
 
@@ -516,7 +489,8 @@ def main() -> int:
     kernels = [{
         "name": "knn2_sqdists",
         "route": "cuda",
-        "route_kernels": ["knn2_scan<R> (queries x target split)",
+        "route_kernels": ["knn2_compact (valid points)",
+                          "knn2_scan (queries x target split)",
                           "knn2_merge (partial top-2s, when the targets split)"],
         "source": "ltm_torch/csrc/knn2.cu",
         "replaces": "ltm/kernels/pallas_knn.py:95",
@@ -528,9 +502,11 @@ def main() -> int:
         "bound_ms": nd["bound_ms"],
         "bound_by": nd["bound_by"],
         "library_ms": nd["library_ms"],
-        "per_launch": [{k: st[k] for k in ("case", "valid_pairs", "splits", "kernel_ms",
-                                           "bound_ms", "bound_by")} for st in calls],
+        "per_launch": [{k: st.get(k) for k in ("case", "valid_pairs", "splits", "kernel_ms",
+                                               "unsplit_ms", "bound_ms", "bound_by")}
+                       for st in calls],
         "km_scale_ms": km["kernel_ms"],
+        "km_scale_unsplit_ms": km.get("unsplit_ms"),
         "km_scale_bound_ms": km["bound_ms"],
     }]
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")

@@ -23,11 +23,12 @@
 //      prefix sums (torch.cumsum in the wrapper, whose one host sync reads
 //      the two counts); the scan writes each result row through that index.
 //      No pair with an invalid point is ever scored.
-//   2. R queries a thread (R = 4, 8 or 16, kept in registers with their
-//      running top-2s).  Each target read from shared memory (a broadcast
-//      LDS.128) serves R pairs.  The top-2 test is one FSETP a pair, OR-ed
-//      over a group of 32 pairs (kGroup targets x R queries) with a single
-//      branch; the update (3 FMNMX a pair, no branch, so a warp whose
+//   2. kR = 8 queries a thread, kept in registers with their running
+//      top-2s.  Each target read from shared memory (a broadcast LDS.128)
+//      serves kR pairs.  (4 ties 8 on the card and 16 is slower: PERF.md;
+//      to measure another count, edit kR and its mirror in knn2.py.)
+//      The top-2 test is one FSETP a pair, OR-ed over a group of 32 pairs
+//      (kGroup targets x kR queries) with a single branch; the update (3 FMNMX a pair, no branch, so a warp whose
 //      queries improve at different targets does not diverge) runs only
 //      when some pair beats its slot 2, which becomes rare once the lists
 //      warm up.  An empty query slot has slot 2 at -inf, so it never passes.
@@ -58,6 +59,7 @@ namespace {
 
 constexpr int kThreads = 128;   // 4 warps: one per scheduler
 constexpr int kTile = 512;      // targets per ring stage (8 KB)
+constexpr int kR = 8;           // queries a thread
 constexpr int kPairs = 32;      // pairs a thread scores between two top-2 tests
 constexpr float kBig = 1e30f;
 
@@ -70,7 +72,7 @@ __device__ __forceinline__ float sqdist(float qx, float qy, float qz, float4 p) 
 
 // Running top-2, without branches (3 FMNMX): an equal value goes into
 // slot 2, so duplicates count twice.  In the scan it is a group's slow
-// path, which a warp takes when any of its 32 x R queries improves, so it
+// path, which a warp takes when any of its 32 x kR queries improves, so it
 // runs often while the lists warm up and must not diverge.
 __device__ __forceinline__ void push2(float d, float& b1, float& b2) {
   b2 = fminf(b2, fmaxf(b1, d));
@@ -86,21 +88,20 @@ __device__ __forceinline__ void load_tile(float4* dst, const float4* src) {
 }
 
 // q (n,3) original queries, qidx (n_valid,) their rows, t (splits*chunk)
-// compacted float4 targets.  CTA (x, s): queries x*R*kThreads + r*kThreads
-// + threadIdx.x, r < R, against targets [s*chunk, (s+1)*chunk).  Writes
+// compacted float4 targets.  CTA (x, s): queries x*kR*kThreads + r*kThreads
+// + threadIdx.x, r < kR, against targets [s*chunk, (s+1)*chunk).  Writes
 // out rows through qidx when part is null, else part[s*n_valid + i].
-template <int R>
-__global__ void __launch_bounds__(kThreads, R >= 16 ? 3 : (R == 8 ? 5 : 6))
+__global__ void __launch_bounds__(kThreads, 5)
 knn2_scan(const float* __restrict__ q, const int* __restrict__ qidx, int n_valid,
           const float4* __restrict__ t, int chunk, float2* __restrict__ part,
           float* __restrict__ out) {
-  constexpr int kGroup = kPairs / R;   // targets a group
+  constexpr int kGroup = kPairs / kR;   // targets a group
   __shared__ __align__(16) float4 ring[2][kTile];
   const float4* ts = t + static_cast<size_t>(blockIdx.y) * chunk;
-  const int base = blockIdx.x * (R * kThreads) + threadIdx.x;
-  float qx[R], qy[R], qz[R], b1[R], b2[R];
+  const int base = blockIdx.x * (kR * kThreads) + threadIdx.x;
+  float qx[kR], qy[kR], qz[kR], b1[kR], b2[kR];
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
+  for (int r = 0; r < kR; ++r) {
     const int i = base + r * kThreads;
     qx[r] = qy[r] = qz[r] = 0.f;
     b1[r] = kBig;
@@ -123,13 +124,13 @@ knn2_scan(const float* __restrict__ q, const int* __restrict__ qidx, int n_valid
     const float4* tile = ring[k & 1];
 #pragma unroll 2
     for (int j = 0; j < kTile; j += kGroup) {
-      float d[kGroup][R];
+      float d[kGroup][kR];
       bool hit = false;
 #pragma unroll
       for (int u = 0; u < kGroup; ++u) {
         const float4 p = tile[j + u];
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
+        for (int r = 0; r < kR; ++r) {
           d[u][r] = sqdist(qx[r], qy[r], qz[r], p);
           hit |= d[u][r] < b2[r];
         }
@@ -138,13 +139,13 @@ knn2_scan(const float* __restrict__ q, const int* __restrict__ qidx, int n_valid
 #pragma unroll
         for (int u = 0; u < kGroup; ++u) {
 #pragma unroll
-          for (int r = 0; r < R; ++r) push2(d[u][r], b1[r], b2[r]);
+          for (int r = 0; r < kR; ++r) push2(d[u][r], b1[r], b2[r]);
         }
       }
     }
   }
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
+  for (int r = 0; r < kR; ++r) {
     const int i = base + r * kThreads;
     if (i >= n_valid) continue;
     if (part != nullptr) {
@@ -202,32 +203,21 @@ __global__ void knn2_merge(const float2* __restrict__ part, const int* __restric
   out[o + 1] = b2;
 }
 
-template <int R>
-int launch_scan(dim3 grid, cudaStream_t stream, const float* q, const int* qidx,
-                int n_valid, const float4* t, int chunk, float2* part, float* out) {
-  knn2_scan<R><<<grid, kThreads, 0, stream>>>(q, qidx, n_valid, t, chunk, part, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
-// Block size and tile length; the wrapper's launch plan must use the same.
-extern "C" void ltm_knn2_config(int* threads, int* tile) {
+// Block size, tile length and queries a thread; the wrapper's launch plan
+// must use the same.
+extern "C" void ltm_knn2_config(int* threads, int* tile, int* r) {
   *threads = kThreads;
   *tile = kTile;
+  *r = kR;
 }
 
-// Resident CTAs of knn2_scan<r> on one SM of the current device (0 for an
-// r that is not built), or a negative CUDA error.
-extern "C" int ltm_knn2_ctas_per_sm(int r) {
+// Resident CTAs of knn2_scan on one SM of the current device, or a
+// negative CUDA error.
+extern "C" int ltm_knn2_ctas_per_sm() {
   int n = 0;
-  cudaError_t rc = cudaErrorInvalidValue;
-  switch (r) {
-    case 4: rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, knn2_scan<4>, kThreads, 0); break;
-    case 8: rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, knn2_scan<8>, kThreads, 0); break;
-    case 16: rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, knn2_scan<16>, kThreads, 0); break;
-    default: return 0;
-  }
+  const cudaError_t rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, knn2_scan, kThreads, 0);
   return rc == cudaSuccess ? n : -static_cast<int>(rc);
 }
 
@@ -236,16 +226,16 @@ extern "C" int ltm_knn2_ctas_per_sm(int r) {
 // m_valid > 0; chunk a multiple of the tile, splits chunks.  Scratch the
 // caller allocates: qidx (n_valid,) i32, t4 (splits*chunk,) float4, part
 // (splits, n_valid) float2 when splits > 1, else null.  out (n,2) f32.
-// Launches the compaction, the scan with r queries a thread and, when
+// Launches the compaction, the scan and, when
 // splits > 1, the merge on `stream`, checks cudaGetLastError() after each
 // and returns the first error (0 on success).  Does not synchronise.
 extern "C" int ltm_knn2_sqdists(const float* q, const bool* qmask, const long long* q_rank,
                                 int n, const float* t, const bool* tmask,
                                 const long long* t_rank, int m, int n_valid, int m_valid,
-                                int chunk, int splits, int r, int* qidx, void* t4, void* part,
+                                int chunk, int splits, int* qidx, void* t4, void* part,
                                 float* out, void* stream) {
   if (n_valid <= 0 || n_valid > n || m_valid <= 0 || m_valid > m || chunk <= 0 ||
-      chunk % kTile != 0 || splits < 1 || splits > 65535 || (r != 4 && r != 8 && r != 16) ||
+      chunk % kTile != 0 || splits < 1 || splits > 65535 ||
       static_cast<long long>(splits) * chunk < m_valid || (splits > 1) != (part != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -258,12 +248,9 @@ extern "C" int ltm_knn2_sqdists(const float* q, const bool* qmask, const long lo
       qmask, q_rank, n, tmask, t_rank, t, m, m_valid, m_pad, qidx, tv, out);
   int rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
-  const dim3 grid((n_valid + r * kThreads - 1) / (r * kThreads), splits);
-  switch (r) {
-    case 4: rc = launch_scan<4>(grid, s, q, qidx, n_valid, tv, chunk, p2, out); break;
-    case 8: rc = launch_scan<8>(grid, s, q, qidx, n_valid, tv, chunk, p2, out); break;
-    default: rc = launch_scan<16>(grid, s, q, qidx, n_valid, tv, chunk, p2, out); break;
-  }
+  const dim3 grid((n_valid + kR * kThreads - 1) / (kR * kThreads), splits);
+  knn2_scan<<<grid, kThreads, 0, s>>>(q, qidx, n_valid, tv, chunk, p2, out);
+  rc = static_cast<int>(cudaGetLastError());
   if (rc != 0 || splits == 1) return rc;
   knn2_merge<<<(n_valid + 255) / 256, 256, 0, s>>>(p2, qidx, n_valid, splits, out);
   return static_cast<int>(cudaGetLastError());

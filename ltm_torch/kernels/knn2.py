@@ -5,12 +5,10 @@ plain PyTorch version.
 
 ``knn2_sqdists`` runs the kernel for CUDA tensors and the plain version for
 CPU tensors; a CUDA call launches the kernel or raises, it never falls back.
-On the card the wrapper plans the launch (``_plan``: queries a thread, and
-how many target splits fill the card); a compaction kernel gathers the
-valid points, the scan kernel scores only valid pairs and a merge kernel
-folds the splits' partial top-2s.  ``_compact_plain`` and ``_merge_plain``
-are the plain versions of the compaction and the merge.
-Both compute every distance in the direct form ``(qx-tx)² + (qy-ty)² +
+On the card the wrapper plans the launch (``_plan``: how many target
+splits fill the card); a compaction kernel gathers the valid points, the
+scan kernel scores only valid pairs and a merge kernel folds the splits'
+partial top-2s.  Both compute every distance in the direct form ``(qx-tx)² + (qy-ty)² +
 (qz-tz)²`` on the original coordinates, as the FMA chain of
 ``projection.sumsq3`` (the order of ``ltm``'s exact re-score on the CPU), so
 they agree bit for bit.
@@ -87,28 +85,28 @@ def knn2_sqdists_plain(query_xyz, query_mask, target_xyz, target_mask):
     return out
 
 
-# ---- launch plan, compaction and merge (the kernel's Python side) --------
+# ---- launch plan (the kernel's Python side) -------------------------------
 
-_THREADS, _TILE = 128, 512   # kThreads, kTile of csrc/knn2.cu (checked when it loads)
-_R = 8                       # queries a thread
+# kThreads, kTile, kR (queries a thread) of csrc/knn2.cu, checked when it loads
+_THREADS, _TILE, _R = 128, 512, 8
 _WAVES = 2                   # CTA waves the grid should reach before targets split
 
 
-def _plan(n_valid: int, m_valid: int, sms: int = 132, ctas_per_sm: int = 4, r: int = _R):
-    """Launch plan ``(R, threads, splits, tile)`` for ``n_valid`` valid
-    queries against ``m_valid`` valid targets (both > 0) on ``sms`` SMs
-    that each hold ``ctas_per_sm`` CTAs of the scan kernel.
+def _plan(n_valid: int, m_valid: int, sms: int = 132, ctas_per_sm: int = 4) -> int:
+    """Target splits for ``n_valid`` valid queries against ``m_valid``
+    valid targets (both > 0) on ``sms`` SMs that each hold ``ctas_per_sm``
+    CTAs of the scan kernel.
 
-    One CTA takes ``R * threads`` queries.  When those CTAs make fewer than
+    One CTA takes ``_R * _THREADS`` queries.  When those CTAs make fewer than
     ``_WAVES`` waves, the targets are cut into ``splits`` contiguous chunks
     of whole tiles (each CTA scans one chunk and a merge kernel folds the
     partial top-2s): the count in ``[s_min, 2 s_min]`` whose last wave is
     the fullest, the smallest on ties, rounded so that no chunk is empty."""
-    q_ctas = -(-n_valid // (r * _THREADS))
+    q_ctas = -(-n_valid // (_R * _THREADS))
     wave = sms * ctas_per_sm
     tiles = -(-m_valid // _TILE)
     if q_ctas >= _WAVES * wave or tiles == 1:
-        return r, _THREADS, 1, _TILE
+        return 1
 
     def no_empty(s):        # chunks of ceil(tiles / s) tiles, and how many that makes
         return -(-tiles // -(-tiles // min(s, tiles)))
@@ -118,35 +116,13 @@ def _plan(n_valid: int, m_valid: int, sms: int = 132, ctas_per_sm: int = 4, r: i
         return ctas / (-(-ctas // wave) * wave)
 
     s_min = -(-_WAVES * wave // q_ctas)
-    splits = max(sorted({no_empty(s) for s in range(s_min, 2 * s_min + 1)}), key=last_wave_fill)
-    return r, _THREADS, splits, _TILE
+    return max(sorted({no_empty(s) for s in range(s_min, 2 * s_min + 1)}), key=last_wave_fill)
 
 
-def _split_len(m_valid: int, splits: int, tile: int) -> int:
+def _split_len(m_valid: int, splits: int, tile: int = _TILE) -> int:
     """Targets in each of ``splits`` chunks: whole tiles covering ``m_valid``."""
     tiles = -(-m_valid // tile)
     return -(-tiles // splits) * tile
-
-
-def _compact_plain(query_mask, target_xyz, target_mask, m_pad: int, out):
-    """Plain version of the compaction kernel: ``(qidx, t4)``, the rows of
-    the valid queries in order (int32), and the valid targets in order as
-    ``(m_pad, 4)`` float32 rows ``(x, y, z, 0)``, padded with ``+inf``
-    points, whose distance to any query is ``+inf``; the invalid queries'
-    rows of ``out`` are set to 1e30 (the scan writes the others)."""
-    out[~query_mask] = _BIG
-    t4 = torch.full((m_pad, 4), torch.inf, dtype=torch.float32, device=target_xyz.device)
-    t4[:, 3] = 0.0
-    valid = target_xyz[target_mask]
-    t4[:valid.shape[0], :3] = valid
-    return torch.nonzero(query_mask).squeeze(1).to(torch.int32), t4
-
-
-def _merge_plain(part):
-    """Plain version of the merge kernel: ``(splits, n, 2)`` partial top-2s
-    to the ``(n, 2)`` two smallest of each query's ``2·splits`` values."""
-    rows = part.permute(1, 0, 2).reshape(part.shape[1], -1)
-    return torch.sort(rows, dim=1).values[:, :2]
 
 
 def knn2_sqdists(query_xyz, query_mask, target_xyz, target_mask):
@@ -169,12 +145,11 @@ knn2_sqdists.launches = 0   # scan kernel launches
 knn2_sqdists.merges = 0     # merge kernel launches (calls whose targets split)
 
 
-def _knn2_cuda(query_xyz, query_mask, target_xyz, target_mask, r: int = _R):
-    """The kernel route of :func:`knn2_sqdists` (inputs checked), with
-    ``r`` queries a thread: the masks' prefix sums and one host sync for the
-    two valid counts, then the compaction, the scan and, when the plan
-    splits the targets, the merge kernel.  No launch when either side has
-    no valid point."""
+def _knn2_cuda(query_xyz, query_mask, target_xyz, target_mask):
+    """The kernel route of :func:`knn2_sqdists` (inputs checked): the masks'
+    prefix sums and one host sync for the two valid counts, then the
+    compaction, the scan and, when the plan splits the targets, the merge
+    kernel.  No launch when either side has no valid point."""
     dev = query_xyz.device
     n, m = query_xyz.shape[0], target_xyz.shape[0]
     out = torch.empty((n, 2), dtype=torch.float32, device=dev)
@@ -186,7 +161,7 @@ def _knn2_cuda(query_xyz, query_mask, target_xyz, target_mask, r: int = _R):
         return out.fill_(_BIG)
     lib = _lib()
     with torch.cuda.device(dev):
-        splits, chunk = _device_plan(dev, n_valid, m_valid, r)
+        splits, chunk = _device_plan(dev, n_valid, m_valid)
         if splits * chunk >= 2**31:
             raise ValueError("knn2 kernel: padded targets exceed 2^31")
         qidx = torch.empty(n_valid, dtype=torch.int32, device=dev)
@@ -195,7 +170,7 @@ def _knn2_cuda(query_xyz, query_mask, target_xyz, target_mask, r: int = _R):
         q, qm, t, tm = (x.contiguous() for x in (query_xyz, query_mask, target_xyz, target_mask))
         rc = lib.ltm_knn2_sqdists(
             q.data_ptr(), qm.data_ptr(), q_rank.data_ptr(), n, t.data_ptr(), tm.data_ptr(),
-            t_rank.data_ptr(), m, n_valid, m_valid, chunk, splits, r, qidx.data_ptr(),
+            t_rank.data_ptr(), m, n_valid, m_valid, chunk, splits, qidx.data_ptr(),
             t4.data_ptr(), None if part is None else part.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
@@ -207,22 +182,22 @@ def _knn2_cuda(query_xyz, query_mask, target_xyz, target_mask, r: int = _R):
     return out
 
 
-def _device_plan(dev, n_valid: int, m_valid: int, r: int = _R):
-    """``(splits, chunk)`` of :func:`_plan` for the scan kernel with ``r``
-    queries a thread on the CUDA device ``dev``."""
-    _, _, splits, tile = _plan(n_valid, m_valid, *_residency(dev.index, r), r)
-    return splits, _split_len(m_valid, splits, tile)
+def _device_plan(dev, n_valid: int, m_valid: int):
+    """``(splits, chunk)``: :func:`_plan` on the CUDA device ``dev``, and
+    the targets in each split."""
+    splits = _plan(n_valid, m_valid, *_residency(dev.index))
+    return splits, _split_len(m_valid, splits)
 
 
 @functools.lru_cache(maxsize=None)
-def _residency(dev_index, r: int):
-    """(SMs, resident CTAs an SM) of the scan kernel with ``r`` queries a
-    thread on a CUDA device: what its registers and shared memory allow."""
+def _residency(dev_index):
+    """(SMs, resident CTAs an SM) of the scan kernel on a CUDA device: what
+    its registers and shared memory allow."""
     with torch.cuda.device(dev_index):
-        ctas = _lib().ltm_knn2_ctas_per_sm(r)
+        ctas = _lib().ltm_knn2_ctas_per_sm()
     sms = torch.cuda.get_device_properties(dev_index).multi_processor_count
     if ctas <= 0:
-        raise RuntimeError(f"knn2 kernel: no resident CTA for R={r} ({ctas})")
+        raise RuntimeError(f"knn2 kernel: no resident CTA ({ctas})")
     return sms, ctas
 
 
@@ -232,17 +207,17 @@ def _lib() -> ctypes.CDLL:
 
     lib = load_kernel("knn2")
     p, i = ctypes.c_void_p, ctypes.c_int   # pointers and the stream as c_void_p: no 32-bit cut
-    lib.ltm_knn2_sqdists.argtypes = [p, p, p, i, p, p, p, i, i, i, i, i, i, p, p, p, p, p]
+    lib.ltm_knn2_sqdists.argtypes = [p, p, p, i, p, p, p, i, i, i, i, i, p, p, p, p, p]
     lib.ltm_knn2_sqdists.restype = i
-    lib.ltm_knn2_ctas_per_sm.argtypes = [i]
+    lib.ltm_knn2_ctas_per_sm.argtypes = []
     lib.ltm_knn2_ctas_per_sm.restype = i
-    lib.ltm_knn2_config.argtypes = [ctypes.POINTER(i), ctypes.POINTER(i)]
+    lib.ltm_knn2_config.argtypes = [ctypes.POINTER(i)] * 3
     lib.ltm_knn2_config.restype = None
     lib.ltm_cuda_error_string.argtypes = [i]
     lib.ltm_cuda_error_string.restype = ctypes.c_char_p
-    threads, tile = i(), i()
-    lib.ltm_knn2_config(ctypes.byref(threads), ctypes.byref(tile))
-    if (threads.value, tile.value) != (_THREADS, _TILE):
-        raise RuntimeError(f"csrc/knn2.cu has threads={threads.value}, tile={tile.value}; "
-                           f"the wrapper plans for {_THREADS}, {_TILE}")
+    threads, tile, r = i(), i(), i()
+    lib.ltm_knn2_config(ctypes.byref(threads), ctypes.byref(tile), ctypes.byref(r))
+    if (threads.value, tile.value, r.value) != (_THREADS, _TILE, _R):
+        raise RuntimeError(f"csrc/knn2.cu has threads={threads.value}, tile={tile.value}, "
+                           f"R={r.value}; the wrapper plans for {_THREADS}, {_TILE}, {_R}")
     return lib

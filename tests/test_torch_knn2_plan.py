@@ -1,8 +1,8 @@
-"""The CUDA 2-NN kernel's Python side on the CPU: its launch plan, the
-compaction and write-back around it, and its target-split route rebuilt
-from plain versions (``knn2_sqdists_plain`` on each split, then
-``_merge_plain`` for the merge kernel), which must equal the whole call bit
-for bit, and ``ltm``'s XLA 2-NN to one ulp.
+"""The CUDA 2-NN kernel's Python side on the CPU: its launch plan, and its
+compaction, write-back and target-split route rebuilt from plain versions
+(``_compact_plain`` for the compaction kernel, ``knn2_sqdists_plain`` on
+each split, then ``_merge_plain`` for the merge kernel), which must equal
+the whole call bit for bit, and ``ltm``'s XLA 2-NN to one ulp.
 
 The kernels themselves need the card: ``chip_smoke.py`` holds the split and
 unsplit routes against ``knn2_sqdists_plain`` there at 0 ulps.
@@ -14,13 +14,7 @@ import pytest
 import torch
 
 from ltm.kernels import knn as jknn
-from ltm_torch.kernels.knn2 import (
-    _compact_plain,
-    _merge_plain,
-    _plan,
-    _split_len,
-    knn2_sqdists_plain,
-)
+from ltm_torch.kernels.knn2 import _R, _THREADS, _TILE, _plan, _split_len, knn2_sqdists_plain
 
 torch.set_num_threads(1)
 
@@ -29,6 +23,27 @@ BIG = np.float32(1e30)
 
 def _t(*arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+def _compact_plain(query_mask, target_xyz, target_mask, m_pad: int, out):
+    """What the compaction kernel computes: ``(qidx, t4)``, the rows of the
+    valid queries in order (int32), and the valid targets in order as
+    ``(m_pad, 4)`` float32 rows ``(x, y, z, 0)``, padded with ``+inf``
+    points, whose distance to any query is ``+inf``; the invalid queries'
+    rows of ``out`` are set to 1e30 (the scan writes the others)."""
+    out[~query_mask] = 1e30
+    t4 = torch.full((m_pad, 4), torch.inf, dtype=torch.float32)
+    t4[:, 3] = 0.0
+    valid = target_xyz[target_mask]
+    t4[:valid.shape[0], :3] = valid
+    return torch.nonzero(query_mask).squeeze(1).to(torch.int32), t4
+
+
+def _merge_plain(part):
+    """What the merge kernel computes: ``(splits, n, 2)`` partial top-2s to
+    the ``(n, 2)`` two smallest of each query's ``2·splits`` values."""
+    rows = part.permute(1, 0, 2).reshape(part.shape[1], -1)
+    return torch.sort(rows, dim=1).values[:, :2]
 
 
 def _split_route(q, qm, t, tm, splits, tile):
@@ -72,12 +87,12 @@ PLAN_CASES = [(1, 1), (7, 5000), (1000, 513), (1024, 512), (13_107, 240_000),
 @pytest.mark.parametrize("sms,ctas_per_sm", [(132, 4), (132, 6), (8, 2)])
 @pytest.mark.parametrize("n_valid,m_valid", PLAN_CASES)
 def test_plan_splits_only_under_two_waves(n_valid, m_valid, sms, ctas_per_sm):
-    r, threads, splits, tile = _plan(n_valid, m_valid, sms, ctas_per_sm)
-    q_ctas = -(-n_valid // (r * threads))
-    tiles = -(-m_valid // tile)
+    splits = _plan(n_valid, m_valid, sms, ctas_per_sm)
+    q_ctas = -(-n_valid // (_R * _THREADS))
+    tiles = -(-m_valid // _TILE)
     assert (splits > 1) == (q_ctas < 2 * sms * ctas_per_sm and tiles > 1)
-    chunk = _split_len(m_valid, splits, tile)
-    assert chunk % tile == 0 and splits * chunk >= m_valid
+    chunk = _split_len(m_valid, splits)
+    assert chunk % _TILE == 0 and splits * chunk >= m_valid
     assert (splits - 1) * chunk < m_valid          # the last split holds a valid target
     assert 1 <= splits <= tiles
 
@@ -86,8 +101,8 @@ def test_plan_random_sizes_never_leave_a_split_empty(rng):
     for n_valid, m_valid, sms, ctas in zip(rng.integers(1, 3_000_000, 200),
                                            rng.integers(1, 3_000_000, 200),
                                            rng.integers(1, 200, 200), rng.integers(1, 9, 200)):
-        _, _, splits, tile = _plan(int(n_valid), int(m_valid), int(sms), int(ctas))
-        chunk = _split_len(int(m_valid), splits, tile)
+        splits = _plan(int(n_valid), int(m_valid), int(sms), int(ctas))
+        chunk = _split_len(int(m_valid), splits)
         assert (splits - 1) * chunk < m_valid <= splits * chunk
 
 
