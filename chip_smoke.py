@@ -6,26 +6,40 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``ltm_torch/csrc`` (nvcc,
-sm_90a), then runs four phases, each of which raises on failure:
+sm_90a), then runs six phases, each of which raises on failure:
 
   1. device and build: the card, PyTorch/CUDA versions, kernel build time,
-     the ``-Xptxas -v`` report, and the scan kernel's hot block read from
-     ``cuobjdump -sass`` (full dump in ``chiprun_out/knn2.sass``);
-  2. kernel vs plain: ``knn2_sqdists`` (CUDA) against ``knn2_sqdists_plain``
-     on the card at 0 ulps, on a masked case, duplicate targets, duplicates
-     straddling a target-split boundary, a split-heavy case, all queries
-     invalid, no valid target, one valid target, a valid-query count that
-     is not a multiple of a CTA's queries, and a km-scale case (timed);
+     the ``-Xptxas -v`` report of every source, and the 2-NN scan's hot
+     block read from ``cuobjdump -sass`` (full dump in
+     ``knn2.sass`` under ``OUT_DIR``);
+  2. kernels vs plain on the card, bit for bit: ``knn2_sqdists`` (K1) on a
+     masked case, duplicate targets, duplicates straddling a target-split
+     boundary, a split-heavy case, all queries invalid, no valid target,
+     one valid target, a ragged valid-query count and a km-scale case
+     (timed); ``chunk_knn_sqdists`` (K4) on masked queries, a target
+     subset, a forced overflow, an all-invalid tail of chunks, duplicate
+     targets and km-offset coordinates (timed), each with the plain
+     version's ``chunk_overflow`` and ``order``;
   3. card vs CPU: ``Removerter.run`` on a small synthetic survey on the CPU
      (plain versions) and on the card (kernels); the 14 named point sets
      agree within max(2, 1e-4·|set|) points;
-  4. full width: the LT-removert pipeline workload of ``bench.py`` (two
-     sessions x 48 keyframes x 120k points, 0.1 m voxels, brute kNN) once to
-     warm up (recording the three knn2 calls: ND, PD, weak->strong
-     promotion) and three timed times, then once under ``torch.profiler``;
-     every kernel of the path must launch in every timed run.  Each of the
-     three recorded calls is then held to the plain version at 0 ulps and
-     timed against its bound.
+  4. full width, brute-force kNN: the LT-removert pipeline workload of
+     ``bench.py`` (two sessions x 48 keyframes x 120k points, 0.1 m voxels,
+     ``use_chunk_knn=False``) once to warm up (recording the three knn2
+     calls: ND, PD, weak->strong promotion), three timed times and once
+     under ``torch.profiler``; K1 must launch in every timed run.  Each
+     recorded call is then held to the plain version and timed against its
+     bound, the plain version and ``cdist`` + ``topk``;
+  5. full width, ``RemovertConfig()`` defaults (the chunked kNN), the same
+     runs; K4 must launch in every timed run and the 14 sets must equal
+     phase 4's.  Each recorded K4 call (ND, PD, promotion, their
+     escalations, and the high-dynamic extraction of ``_save_artifacts``)
+     is held to the plain version and timed against its bound and the K1
+     yardstick;
+  6. the CLI: ``python -m ltm_torch.cli.ltremovert`` in a subprocess on
+     session directories of 8 keyframes x 120k points a session; its
+     artifact tree must hold the expected files with the point counts of
+     ``Removerter.run`` on the same inputs in this process.
 
 Every timed call whose targets split is also run and timed with the plan
 held at one split, which must give the same bits.
@@ -39,6 +53,7 @@ and prints no result.  The port imports neither ``jax`` nor ``ltm``.
 from __future__ import annotations
 
 import collections
+import faulthandler
 import json
 import os
 import re
@@ -193,6 +208,106 @@ def km_scale_case(rng, n=16385, m=300_000):
     return q, rng.uniform(size=n) > 0.2, t, rng.uniform(size=m) > 0.2
 
 
+def chunk_work(q, qm, bm, extra, clamp, chunk, k_blocks, sort_cell):
+    """(scored valid pairs, listed blocks) of a chunked 2-NN call on these
+    inputs: the chunks that did not overflow, each valid query against the
+    valid slots of the blocks its ball reaches (the plain version's block
+    test, counted instead of scored)."""
+    import torch
+
+    from ltm_torch.kernels import chunk_knn as ck
+
+    t_mask, bval, blo, bhi = ck._block_bounds(bm, extra)
+    qx, qmc, _ = ck._prep_sorted_chunks(q, qm, chunk, sort_cell)
+    cnt, center, reach = ck._chunk_balls(qx, qmc, clamp)
+    slots = t_mask.sum(1).double()
+    active = torch.nonzero(cnt > 0).squeeze(1)
+    pairs = listed = 0.0
+    step = max(1, (1 << 22) // bval.shape[0])
+    for a0 in range(0, active.shape[0], step):
+        cs = active[a0:a0 + step]
+        c = center[cs][:, None, :]
+        gap = torch.clamp(torch.maximum(blo[None] - c, c - bhi[None]), min=0.0)
+        hit = bval[None] & (ck._sqrt(ck.sumsq3(gap)) <= reach[cs][:, None])
+        n_int = hit.sum(1)
+        ok = n_int <= k_blocks
+        pairs += float(((hit.double() @ slots) * cnt[cs] * ok).sum())
+        listed += float((n_int * ok).sum())
+    return pairs, listed
+
+
+def chunk_bound(q, bm, n_chunks, pairs, listed):
+    """(ms, "bytes" or "operations", gather ms): the least time of a chunked
+    2-NN call, the larger of its bytes (queries and block map read once,
+    (N,2) rows, the order and the per-chunk overflow written once) over the
+    memory rate and its float32 operations (8 a scored valid pair) over the
+    non-tensor FP32 rate; and the time of the block gather alone (every
+    listed block's slots, 13 bytes each, read once a chunk)."""
+    n, slots = q.shape[0], bm.mask.numel()
+    t_bytes = (13 * n + 13 * slots + 12 * n + 4 * n_chunks) / H100_BYTES_PER_S
+    t_ops = 8.0 * pairs / H100_FP32_FLOPS
+    gather = 13 * listed * bm.block_capacity / H100_BYTES_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes"), 1e3 * gather
+
+
+def compare_chunk(name, q, qm, bm, extra, clamp_radius, k=2, chunk=256, k_blocks=64,
+                  sort_cell=4.0, timed=False):
+    """Chunk kNN kernel vs plain on the card: the same bits in every row (NaN
+    rows of overflowed chunks included), the same overflow and order, one
+    launch.  A timed call is also timed against its bound and the K1
+    yardstick (the same targets through ``knn2_sqdists`` plus the clamp).
+    Returns stats."""
+    import torch
+
+    from ltm_torch.kernels.chunk_knn import chunk_knn_sqdists, chunk_knn_sqdists_plain
+    from ltm_torch.kernels.knn2 import knn2_sqdists
+
+    kw = dict(k=k, chunk=chunk, k_blocks=k_blocks, sort_cell=sort_cell)
+    before = chunk_knn_sqdists.launches, knn2_sqdists.launches, knn2_sqdists.merges
+    got = chunk_knn_sqdists(q, qm, bm, extra, clamp_radius, **kw)
+    torch.cuda.synchronize()
+    if chunk_knn_sqdists.launches - before[0] != 1:
+        raise AssertionError(f"{name}: {chunk_knn_sqdists.launches - before[0]} launches, "
+                             f"expected 1")
+    holder = []
+    plain_ms = cuda_ms(lambda: holder.append(
+        chunk_knn_sqdists_plain(q, qm, bm, extra, clamp_radius, **kw)), reps=1)
+    ref = holder[0]
+    g, r = got.sqdists.cpu().numpy(), ref.sqdists.cpu().numpy()
+    over = got.chunk_overflow.cpu().numpy()
+    if not np.array_equal(over, ref.chunk_overflow.cpu().numpy()):
+        raise AssertionError(f"{name}: chunk_overflow differs from the plain version's")
+    if not torch.equal(got.order, ref.order):
+        raise AssertionError(f"{name}: order differs from the plain version's")
+    ulps = ulps_apart(g, r)
+    if ulps > 0:
+        raise AssertionError(f"{name}: kernel and plain differ by {ulps} ulps")
+    fin = np.isfinite(g) & (g < 1e29)
+    n_valid = int(qm.sum())
+    stats = {"case": name, "n": q.shape[0], "n_valid": n_valid, "chunks": over.size,
+             "overflowed_chunks": int((over > 0).sum()), "k_blocks": k_blocks,
+             "blocks": bm.num_blocks, "block_capacity": bm.block_capacity, "ulps": ulps,
+             "max_abs_err": float(np.abs(g[fin] - r[fin]).max(initial=0.0))}
+    if timed:
+        pairs, listed = chunk_work(q, qm, bm, extra, clamp_radius, chunk, k_blocks, sort_cell)
+        stats["scored_pairs"], stats["listed_blocks"] = pairs, listed
+        stats["kernel_ms"] = cuda_ms(lambda: chunk_knn_sqdists(q, qm, bm, extra, clamp_radius,
+                                                               **kw), reps=5)
+        stats["plain_ms"] = plain_ms
+        stats["bound_ms"], stats["bound_by"], stats["gather_ms"] = chunk_bound(
+            q, bm, over.size, pairs, listed)
+        stats["bound_share"] = stats["bound_ms"] / stats["kernel_ms"]
+        t, tm = bm.xyz.reshape(-1, 3), bm.mask.reshape(-1)
+        if extra is not None:
+            tm = tm & extra
+        r2 = torch.tensor(clamp_radius * clamp_radius, dtype=torch.float32, device=q.device)
+        stats["k1_yardstick_ms"] = cuda_ms(lambda: torch.minimum(knn2_sqdists(q, qm, t, tm), r2),
+                                           reps=3)
+    # comparison launches do not count
+    chunk_knn_sqdists.launches, knn2_sqdists.launches, knn2_sqdists.merges = before
+    return stats
+
+
 def sass_hot_blocks(lib_path):
     """The hot block of ``knn2_scan`` in the built library, from
     ``cuobjdump -sass``: the basic block with the most FFMA, which is one
@@ -330,7 +445,8 @@ def phase_kernel_cases(dev):
     for name, *arrays in cases:
         args = on_card(*arrays)
         launches = int(arrays[1].any() and arrays[3].any())
-        st = compare_knn2(name, *args, timed=(name == "km_scale"), launches=launches)
+        st = compare_knn2(name, *args, timed=(name == "km_scale"), library=(name == "km_scale"),
+                          launches=launches)
         got = knn2.knn2_sqdists(*args).cpu().numpy()
         if name == "duplicates" and not np.allclose(got, 1.0, atol=1e-6):
             raise AssertionError("duplicate targets must count twice")
@@ -344,6 +460,68 @@ def phase_kernel_cases(dev):
         if name == "km_scale":
             km = st
     knn2.knn2_sqdists.launches = knn2.knn2_sqdists.merges = 0
+    return km
+
+
+def phase_chunk_cases(dev):
+    """Phase 2, K4: the chunk kNN kernel against its plain version on the
+    card, on cases that reach every route of the scan.  Returns the timed
+    km-offset stats."""
+    import torch
+
+    from ltm_torch.kernels.blocks import build_block_map_with_slots
+    from ltm_torch.kernels.chunk_knn import chunk_knn_sqdists
+
+    def on_card(*arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+
+    def layout(t, tm, cell, cap):
+        tt, ttm = on_card(t, tm)
+        need = max(-(-int(tm.sum()) * 2 // cap), 1)
+        bm, ov, _ = build_block_map_with_slots(tt, ttm, cell, 1 << (need - 1).bit_length(), cap)
+        if ov:
+            raise AssertionError("phase 2 block layout overflowed")
+        return bm
+
+    rng = np.random.default_rng(1)
+    t = rng.uniform(-30, 30, (50_000, 3)).astype(np.float32)
+    tm = rng.uniform(size=50_000) > 0.2
+    bm = layout(t, tm, 8.0, 64)
+    q = rng.uniform(-32, 32, (17_777, 3)).astype(np.float32)
+    qm = rng.uniform(size=17_777) > 0.1
+    extra = torch.from_numpy(rng.uniform(size=bm.mask.numel()) > 0.5).to(dev)
+    tail_m = np.arange(17_777) < 5_000              # 5 000 valid: the sorted tail is all-invalid
+    td = np.tile(np.array([[1.0, 0, 0], [1.0, 0, 0], [5.0, 0, 0]], np.float32), (200, 1))
+    km_q, km_qm, km_t, km_tm = km_scale_case(rng)
+    near = dict(clamp_radius=2.0, k_blocks=2048, sort_cell=8.0)
+    cases = [
+        ("chunk_masked", *on_card(q, qm), bm, None, near),
+        ("chunk_target_extra", *on_card(q, qm), bm, extra, near),
+        ("chunk_forced_overflow", *on_card(q, qm), bm, None, dict(near, k_blocks=4)),
+        ("chunk_invalid_tail", *on_card(q, tail_m), bm, None, near),
+        ("chunk_duplicates", *on_card(np.zeros((8, 3), np.float32), np.ones(8, bool)),
+         layout(td, np.ones(len(td), bool), 8.0, 64), None,
+         dict(clamp_radius=3.0, chunk=8, k_blocks=64)),
+        ("chunk_km_offset", *on_card(km_q, km_qm), layout(km_t, km_tm, 12.5, 128), None,
+         dict(clamp_radius=float(np.sqrt(2.0)), k_blocks=3072)),
+    ]
+    km = None
+    for name, qq, qqm, b, ex, kw in cases:
+        st = compare_chunk(name, qq, qqm, b, ex, timed=(name == "chunk_km_offset"), **kw)
+        if name == "chunk_forced_overflow" and st["overflowed_chunks"] == 0:
+            raise AssertionError("forced overflow: no chunk overflowed")
+        if name != "chunk_forced_overflow" and st["overflowed_chunks"]:
+            raise AssertionError(f"{name}: {st['overflowed_chunks']} chunks overflowed")
+        if name == "chunk_invalid_tail" and st["chunks"] <= -(-5_000 // 256):
+            raise AssertionError("invalid tail: no all-invalid chunk")
+        if name == "chunk_duplicates":
+            got = chunk_knn_sqdists(qq, qqm, b, ex, **kw).sqdists.cpu().numpy()
+            if not np.array_equal(got, np.ones((8, 2), np.float32)):
+                raise AssertionError("chunk kNN: duplicate targets must count twice")
+        log(f"[2] {json.dumps(st)}")
+        if name == "chunk_km_offset":
+            km = st
+    chunk_knn_sqdists.launches = 0
     return km
 
 
@@ -377,13 +555,15 @@ def workload(n_kf, n_pts, traj):
 
 
 KNN2_CALLS = ("full_width_nd", "full_width_pd", "full_width_promotion")
+FULL_WIDTH = (48, 120_000, 1200.0)     # keyframes a session, points a scan, corridor metres
+CLI_WIDTH = (8, 120_000, 200.0)        # phase 6: full scan width, reduced depth
 
 
 def phase_full_width(cfg):
-    """Phase 4: the full-width workload, warm-up (recording the knn2 calls)
-    then three timed runs and one profiled run; then each recorded call
-    against the plain version.  Returns the per-call stats and the last
-    timed run's launch counts."""
+    """Phase 4: the full-width workload on the brute-force kNN (K1), warm-up
+    (recording the knn2 calls) then three timed runs and one profiled run;
+    then each recorded call against the plain version.  Returns the per-call
+    stats, the last timed run's launch counts and its 14 masks (host)."""
     import torch
 
     import ltm_torch.kernels.knn as knn_mod
@@ -393,7 +573,7 @@ def phase_full_width(cfg):
     from ltm_torch.utils import reset_slot_counts, reset_stage_times, slot_counts, stage_times
 
     os.environ["LTM_SYNC_STAGES"] = "1"   # stage walls include their device work
-    full = workload(48, 120_000, 1200.0)
+    full = workload(*FULL_WIDTH)
     rm = Removerter(cfg, device="cuda")
     calls = []
 
@@ -457,14 +637,172 @@ def phase_full_width(cfg):
     # the kernel at the main path's three call shapes, as the pipeline made them
     stats = []
     for name, args in zip(KNN2_CALLS, calls):
-        st = compare_knn2(name, *args, timed=True, library=(name == "full_width_nd"))
+        st = compare_knn2(name, *args, timed=True, library=True)
         stats.append(st)
         log(f"[4] {json.dumps(st)}")
+    return stats, timed[-1], {name: m.cpu().numpy() for name, m in result.masks.items()}
+
+
+def phase_default_config(cfg, brute_masks):
+    """Phase 5: the full-width workload on ``RemovertConfig()``'s defaults
+    (the chunked kNN, K4), warm-up (recording its K4 calls) then three timed
+    runs and one profiled run; K4 must launch in every timed run and the 14
+    sets must equal phase 4's brute-force run.  Then the high-dynamic scan
+    extraction of ``_save_artifacts`` (the largest kNN call) is recorded too,
+    and each recorded call is held to the plain version and timed against
+    its bound and the K1 yardstick.  Returns the per-call stats and the last
+    timed run."""
+    import torch
+
+    import ltm_torch.removert.pipeline as pipe
+    from ltm_torch.kernels.chunk_knn import chunk_knn_sqdists
+    from ltm_torch.kernels.knn2 import knn2_sqdists
+    from ltm_torch.removert import Removerter
+    from ltm_torch.removert.pipeline import MASK_NAMES
+    from ltm_torch.utils import (current_stage, reset_slot_counts, reset_stage_times,
+                                 stage_timer, stage_times)
+
+    os.environ["LTM_SYNC_STAGES"] = "1"
+    full = workload(*FULL_WIDTH)
+    rm = Removerter(cfg, device="cuda")
+    calls = []
+
+    def recording(*args, **kwargs):
+        stage = current_stage()
+        if kwargs["k_blocks"] > cfg.chunk_knn_k_blocks:    # an escalation follows its main call
+            name = calls[-1][0].replace("_escalated", "") + "_escalated"
+        elif stage == "removert.knn_diff":
+            name = "full_width_pd" if calls else "full_width_nd"
+        else:
+            name = {"removert.strong_weak.propagate": "full_width_promotion",
+                    "removert.save": "full_width_high_dyn"}[stage]
+        calls.append((name, args, kwargs))
+        return chunk_knn_sqdists(*args, **kwargs)
+
+    runs = []
+    for i in range(4):                     # run 0 warms up and records the calls
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        reset_stage_times()
+        reset_slot_counts()
+        torch.cuda.synchronize()
+        chunk_knn_sqdists.launches = knn2_sqdists.launches = knn2_sqdists.merges = 0
+        pipe.chunk_knn_sqdists = recording if i == 0 else chunk_knn_sqdists
+        try:
+            t0 = time.perf_counter()
+            result = rm.run(*full)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            pipe.chunk_knn_sqdists = chunk_knn_sqdists
+        if chunk_knn_sqdists.launches <= 0:
+            raise AssertionError("the default-configuration run launched no chunk kNN kernel")
+        n_kf = result.central.num_keyframes + result.query.num_keyframes
+        fb = rm.chunk_knn_fallbacks
+        runs.append({"run": i, "wall_s": wall, "keyframes_per_s": n_kf / wall,
+                     "k4_launches": chunk_knn_sqdists.launches,
+                     "knn2_launches": knn2_sqdists.launches,
+                     "escalated_queries": sum(len(f["escalated"]) for f in fb),
+                     "brute_forced_queries": sum(len(f["brute"]) for f in fb),
+                     "stages_s": stage_times()})
+        log(f"[5] {json.dumps(runs[-1])}")
+    diff = [n for n in MASK_NAMES
+            if not np.array_equal(result.masks[n].cpu().numpy(), brute_masks[n])]
+    if diff:
+        raise AssertionError(f"chunked kNN and brute force differ in sets {diff}")
+    timed = runs[1:]
+    summary = {
+        "median_keyframes_per_s": statistics.median(r["keyframes_per_s"] for r in timed),
+        "median_wall_s": statistics.median(r["wall_s"] for r in timed),
+        "k4_launches_per_run": [r["k4_launches"] for r in timed],
+        "escalated_queries_per_run": [r["escalated_queries"] for r in timed],
+        "brute_forced_queries_per_run": [r["brute_forced_queries"] for r in timed],
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "sets_equal_brute_force": True,
+    }
+    log(f"[5] {json.dumps(summary)}")
+    log(f"[5] profiled run: {json.dumps(device_profile(lambda: rm.run(*full)))}")
+
+    pipe.chunk_knn_sqdists = recording
+    try:
+        with stage_timer("removert.save"):
+            hd = rm._high_dyn_points(result.central)
+    finally:
+        pipe.chunk_knn_sqdists = chunk_knn_sqdists
+    if not (len(hd) and np.isfinite(hd).all()):
+        raise AssertionError("high-dynamic extraction: no points or non-finite points")
+    stats = []
+    for name, args, kwargs in calls:
+        st = compare_chunk(name, *args, timed=True, **kwargs)
+        stats.append(st)
+        log(f"[5] {json.dumps(st)}")
     return stats, timed[-1]
+
+
+def phase_cli(device="cuda"):
+    """Phase 6: ``python -m ltm_torch.cli.ltremovert`` on the card in a
+    subprocess, on session directories written from ``synth_session`` (full
+    scan width, 8 keyframes a session), against ``Removerter.run`` on the
+    same inputs in this process: the same artifact files, the same point
+    count in each."""
+    from ltm_torch.core.config import RemovertConfig
+    from ltm_torch.io.pcd import read_pcd, write_pcd
+    from ltm_torch.io.poses import write_kitti_poses
+    from ltm_torch.io.synthetic import synth_session
+    from ltm_torch.removert import Removerter, RemovertInput
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(repo, "build", "chip_smoke_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    n_kf, n_pts, traj = CLI_WIDTH
+    r = np.random.default_rng(0)
+    flags = []
+    for name, phase in (("central", 0.0), ("query", 0.25)):
+        scans, poses = synth_session(r, n_kf, n_pts, traj=traj, phase=phase)
+        os.makedirs(os.path.join(root, name, "scans"))
+        for i, scan in enumerate(scans):
+            write_pcd(os.path.join(root, name, "scans", f"{i}.pcd"), scan)
+        write_kitti_poses(os.path.join(root, name, "poses.txt"), poses)
+        flags += [f"--{name}-scans", os.path.join(root, name, "scans"),
+                  f"--{name}-poses", os.path.join(root, name, "poses.txt")]
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "ltm_torch.cli.ltremovert", *flags,
+                          "--out", os.path.join(root, "cli_out"), "--device", device],
+                         capture_output=True, text=True, timeout=600, cwd=repo)
+    cli_s = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"the CLI exited {out.returncode}:\n{out.stderr[-4000:]}")
+    t0 = time.perf_counter()
+    Removerter(RemovertConfig(), device=device).run(
+        RemovertInput.from_dirs(flags[1], flags[3]), RemovertInput.from_dirs(flags[5], flags[7]),
+        save_directory=os.path.join(root, "lib_out"))
+    lib_s = time.perf_counter() - t0
+
+    def tree(d):
+        return {os.path.relpath(os.path.join(a, n), d): len(read_pcd(os.path.join(a, n)))
+                for a, _, names in os.walk(d) for n in names}
+
+    cli, lib = tree(os.path.join(root, "cli_out")), tree(os.path.join(root, "lib_out"))
+    expected = {"updated_map.pcd", "nd_map.pcd", "pd_map.pcd", "central_sess_high_dyn.pcd",
+                "map_static/CentralStaticMapMapsideGlobalResX2.5.pcd"}
+    expected |= {f"{sub}/{i}.pcd" for sub in ("scans_updated", "scans_pd", "scans_nd_strong")
+                 for i in range(n_kf)}
+    if not expected <= set(cli):
+        raise AssertionError(f"the CLI's tree lacks {sorted(expected - set(cli))}")
+    if cli != lib:
+        raise AssertionError(f"CLI and in-process trees differ: "
+                             f"{sorted(set(cli) ^ set(lib))} "
+                             f"{[k for k in cli if k in lib and cli[k] != lib[k]]}")
+    st = {"files": len(cli), "points": sum(cli.values()), "cli_s": cli_s,
+          "in_process_s": lib_s, "updated_map_points": cli["updated_map.pcd"]}
+    log(f"[6] {json.dumps(st)}")
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def main() -> int:
     import torch
+
+    faulthandler.enable()   # a crash in native code prints the Python stack
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -478,14 +816,23 @@ def main() -> int:
     log(f"[1] card: {card} | torch {torch.__version__} | CUDA {torch.version.cuda}")
     phase_build()
     km = phase_kernel_cases(dev)
+    km4 = phase_chunk_cases(dev)
 
     cfg = RemovertConfig()
     cfg.downsample_voxel_size = 0.1
-    cfg.use_chunk_knn = False      # the chunked kNN is ported in a later slice
     phase_card_vs_cpu(cfg)
-    calls, last_run = phase_full_width(cfg)
+    brute = RemovertConfig()
+    brute.downsample_voxel_size = 0.1
+    brute.use_chunk_knn = False    # phase 4 is the brute-force path (K1) by design
+    calls, last_run, brute_masks = phase_full_width(brute)
+    k4_calls, k4_run = phase_default_config(cfg, brute_masks)
+    phase_cli()
 
     nd = calls[0]
+    k4_nd = next(st for st in k4_calls if st["case"] == "full_width_nd")
+    per_call = ("case", "n_valid", "scored_pairs", "listed_blocks", "overflowed_chunks",
+                "k_blocks", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "gather_ms",
+                "k1_yardstick_ms")
     kernels = [{
         "name": "knn2_sqdists",
         "route": "cuda",
@@ -495,6 +842,7 @@ def main() -> int:
         "source": "ltm_torch/csrc/knn2.cu",
         "replaces": "ltm/kernels/pallas_knn.py:95",
         "launches": last_run["knn2_launches"],
+        "launches_path": "phase 4 (use_chunk_knn=False)",
         "merge_launches": last_run["knn2_merge_launches"],
         "max_abs_err": max(st["max_abs_err"] for st in calls),
         "ms": nd["kernel_ms"],
@@ -503,11 +851,30 @@ def main() -> int:
         "bound_by": nd["bound_by"],
         "library_ms": nd["library_ms"],
         "per_launch": [{k: st.get(k) for k in ("case", "valid_pairs", "splits", "kernel_ms",
-                                               "unsplit_ms", "bound_ms", "bound_by")}
+                                               "unsplit_ms", "bound_ms", "bound_by", "plain_ms",
+                                               "library_ms")}
                        for st in calls],
         "km_scale_ms": km["kernel_ms"],
         "km_scale_unsplit_ms": km.get("unsplit_ms"),
         "km_scale_bound_ms": km["bound_ms"],
+        "km_scale_library_ms": km["library_ms"],
+    }, {
+        "name": "chunk_knn_sqdists",
+        "route": "cuda",
+        "source": "ltm_torch/csrc/chunk_knn.cu",
+        "replaces": "ltm/kernels/chunk_knn.py:119",
+        "launches": k4_run["k4_launches"],
+        "launches_path": "phase 5 (RemovertConfig() defaults)",
+        "max_abs_err": max(st["max_abs_err"] for st in k4_calls),
+        "ms": k4_nd["kernel_ms"],
+        "plain_ms": k4_nd["plain_ms"],
+        "bound_ms": k4_nd["bound_ms"],
+        "bound_by": k4_nd["bound_by"],
+        "library_ms": None,
+        "k1_yardstick_ms": k4_nd["k1_yardstick_ms"],
+        "per_launch": [{k: st.get(k) for k in per_call} for st in k4_calls],
+        "km_offset_ms": km4["kernel_ms"],
+        "km_offset_bound_ms": km4["bound_ms"],
     }]
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

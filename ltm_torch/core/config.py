@@ -232,9 +232,8 @@ class RemovertConfig:
     # every pipeline decision stays exact (see kernels/chunk_knn.py); chunks
     # whose neighborhood overflows k_blocks are re-run with brute force
     # (exactness never depends on the tuning constants).  Engages when the
-    # padded target map is at least chunk_knn_min_targets.
-    # The port has no chunk kNN yet: ltm_torch.removert.pipeline raises
-    # NotImplementedError when this path would engage (set it False).
+    # padded target map is at least chunk_knn_min_targets.  In the port the
+    # scan is a CUDA kernel (ltm_torch/kernels/chunk_knn.py).
     use_chunk_knn: bool = True
     chunk_knn_min_targets: int = 1 << 17
     chunk_knn_chunk: int = 256

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 __all__ = [
@@ -78,6 +79,12 @@ def _div(x: torch.Tensor, s: float) -> torch.Tensor:
     return x / torch.full((), s, dtype=x.dtype, device=x.device)
 
 
+def _recip(s: float) -> np.float32:
+    """The float32 reciprocal of float32 ``s``: what XLA multiplies by where
+    ``ltm`` divides by a compile-time constant under ``jit``."""
+    return np.float32(1.0) / np.float32(s)
+
+
 def transform(xyz: torch.Tensor, R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """``R·p + t`` per point in float32 (``R``/``t`` broadcast over the
     points' leading axes), as XLA computes ``ltm``'s HIGHEST-precision
@@ -116,8 +123,11 @@ def _pix_rowcol(xyz: torch.Tensor, fov, shape):
     rng = _sqrt(_fma(z, z, xx_yy))
     az = _fma(torch.atan2(y, x), _RAD2DEG, hfov / 2.0)
     el = _fma(torch.atan2(z, rxy), _RAD2DEG, vfov / 2.0)
-    row = torch.round(nrow * (1.0 - _div(el, vfov)))
-    col = torch.round(ncol * _div(az, hfov))
+    # XLA turns a division by a constant into a product with its float32
+    # reciprocal and folds constant factors: nrow·(1 − el/vfov) ->
+    # nrow·fma(−el, 1/vfov, 1); ncol·(az/hfov) -> az·(ncol·(1/hfov))
+    row = torch.round(nrow * _fma(-el, float(_recip(vfov)), 1.0))
+    col = torch.round(az * float(np.float32(ncol) * _recip(hfov)))
     row = torch.clamp(row, 0, nrow - 1).long()
     col = torch.clamp(col, 0, ncol - 1).long()
     return row, col, rng

@@ -6,22 +6,26 @@ Reference: ``Removerter::run`` (``ltremovert/src/Removerter.cpp:1653-1678``):
   Step 1 high-dynamic removal (self visibility check per session)
   Step 2 low-dynamic PD/ND change detection (cross-session kNN + 3×
          visibility re-checks → strong/weak split, weak→strong propagation)
-  Step 3 LT-map composition (union + weak-ND + PD).
+  Step 3 LT-map composition (union + weak-ND + PD), and with a save
+         directory the reference's artifact tree (maps, scan-wise updates).
 
 Each session's global map is ONE padded tensor and every stage is a boolean
 mask over it.  The visibility sweeps stream keyframes through scatter-min
-projections over the block layout (``ltm_torch.kernels.blocks``); the kNN
-stages go through the hand-written CUDA 2-NN kernel on the card
-(``ltm_torch.kernels.knn2``).
+projections over the block layout (``ltm_torch.kernels.blocks``).  The kNN
+stages take the chunked block kNN on maps of at least
+``chunk_knn_min_targets`` points (the hand-written CUDA scan of
+``ltm_torch.kernels.chunk_knn`` on the card), with its overflowed chunks
+escalated and then brute-forced, and the brute-force 2-NN below that (the
+CUDA kernel of ``ltm_torch.kernels.knn2``).
 
 Not ported yet, and refused with ``NotImplementedError`` rather than run
-differently: the chunked block kNN (``use_chunk_knn`` at map scale), the
-device mesh, occlusion culling, grid kNN, the self-removert loop and saving
-artifacts.
+differently: a device mesh of more than one device, occlusion culling, grid
+kNN and the self-removert loop.
 """
 
 from __future__ import annotations
 
+import os
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Dict, Optional
@@ -31,6 +35,7 @@ import torch
 
 from ltm_torch.core.config import RemovertConfig
 from ltm_torch.device import resolve_device
+from ltm_torch.io.pcd import write_pcd
 from ltm_torch.kernels.blocks import (
     block_fused_visibility_images,
     block_sweep_discrepancy,
@@ -38,14 +43,21 @@ from ltm_torch.kernels.blocks import (
     build_block_map_with_slots,
     required_k_blocks_np,
 )
+from ltm_torch.kernels.chunk_knn import chunk_knn_sqdists
 from ltm_torch.kernels.knn import chunked_knn_avg_sqdist
 from ltm_torch.kernels.projection import (
+    NO_POINT,
     VALID_DIFF_UB,
+    apply_pose,
     fused_visibility_images,
+    range_image,
     rimg_shape,
     sweep_discrepancy,
     sweep_discrepancy_vs_images,
+    transform,
+    winner_mask,
 )
+from ltm_torch.kernels.voxel import voxel_unique_mask
 from ltm_torch.ltmap.compose import compose_updated_maps
 from ltm_torch.removert.session import (
     RemovertInput,
@@ -101,9 +113,20 @@ class _IdCache:
         return value
 
 
-def _check_supported(cfg: RemovertConfig) -> None:
+def mesh_size(mesh_devices: Optional[int], device: torch.device) -> int:
+    """Devices the hot loops would shard over, by ``ltm``'s contract for
+    ``cfg.mesh_devices``: None, 0 or 1 one device, -1 every local device
+    (the CUDA cards, or one CPU), n that many."""
+    if mesh_devices in (None, 0, 1):
+        return 1
+    if mesh_devices == -1:
+        return torch.cuda.device_count() if device.type == "cuda" else 1
+    return mesh_devices
+
+
+def _check_supported(cfg: RemovertConfig, device: torch.device) -> None:
     later = {
-        "mesh_devices": cfg.mesh_devices not in (None, 0, 1),
+        "mesh_devices": mesh_size(cfg.mesh_devices, device) > 1,
         "use_occlusion_culling": cfg.use_occlusion_culling,
         "use_grid_knn": cfg.use_grid_knn,
         "use_self_removert": cfg.use_self_removert,
@@ -126,16 +149,20 @@ class Removerter:
         # session -> (K, n_pix) filter-res images of its projected static
         # scans (built in project_static, read by every strong-weak repeat)
         self._img_cache = _IdCache()
+        # map -> (kNN block layout, slots), built once per map (_knn_block_map)
+        self._kbm_cache = _IdCache()
+        # one entry per chunk-kNN call that overflowed: the original indices
+        # of its escalated and brute-forced queries (_chunk_knn_finish)
+        self.chunk_knn_fallbacks: list = []
 
     # ------------------------------------------------------------------
     def run(self, central_inp: RemovertInput, query_inp: RemovertInput,
             save_directory: Optional[str] = None) -> RemovertResult:
         cfg = self.cfg
-        _check_supported(cfg)
-        if save_directory:
-            raise NotImplementedError("saving artifacts is ported with the CLI in a later "
-                                      "slice; pass save_directory=None")
+        _check_supported(cfg, self.device)
         fov = (cfg.vfov, cfg.hfov)
+        self._kbm_cache = _IdCache()
+        self.chunk_knn_fallbacks = []
 
         # ---------------- Step 0: prep -----------------------------------
         with stage_timer("removert.prep", log):
@@ -213,7 +240,11 @@ class Removerter:
             query.masks["static"], query.masks["dynamic"],
             coexist_c, coexist_q, nd_cand, nd_strong, nd_weak,
             pd_cand, pd_strong, pd_weak, updated, updated_strong)))
-        return RemovertResult(central=central, query=query, combined_xyz=comb_xyz, masks=masks)
+        result = RemovertResult(central=central, query=query, combined_xyz=comb_xyz, masks=masks)
+        if save_directory:
+            with stage_timer("removert.save", log):
+                self._save_artifacts(result, save_directory, fov)
+        return result
 
     # ------------------------------------------------------------------
     # per-sweep exact culling bounds + block budgets
@@ -339,7 +370,8 @@ class Removerter:
         the projected-visible static set (the verdict depends only on the
         point).  Returns (diff, coexist)."""
         eligible = sess.masks["static"] & sess.masks["proj_static"]
-        d = self._knn_stat(sess.map_xyz, eligible, other.map_xyz, other.masks["static"])
+        d = self._knn_stat(sess.map_xyz, eligible, other.map_xyz, other.masks["static"],
+                           target_base=other.map_mask)
         close = d < self.cfg.knn_avg_sqdist_threshold
         return eligible & ~close, eligible & close
 
@@ -433,14 +465,113 @@ class Removerter:
                      sess.sess_type, "ND" if reverse else "PD", repeat_counts)
         return cur, weak
 
-    def _knn_stat(self, query_xyz, query_mask, target_xyz, target_mask):
-        """Average of the k nearest squared distances (brute force; on the
-        card the k=2 statistic is the CUDA 2-NN kernel)."""
+    def _knn_stat(self, query_xyz, query_mask, target_xyz, target_mask, target_base=None):
+        """Average of the k nearest squared distances.  Maps of at least
+        ``chunk_knn_min_targets`` points take the chunked block kNN (clamped,
+        exact at the pipeline's thresholds); the rest, and maps whose kNN
+        block layout overflows, the brute force (on the card the k=2
+        statistic is the CUDA 2-NN kernel).  ``target_base`` is the map's
+        validity mask (every ``target_mask`` is a subset): the chunked path
+        sizes its block layout by the real points."""
         cfg = self.cfg
         if cfg.use_chunk_knn and target_xyz.shape[0] >= cfg.chunk_knn_min_targets:
-            raise NotImplementedError("chunk kNN is ported in a later slice; set use_chunk_knn=False")
+            st = self._chunk_knn_start(query_xyz, query_mask, target_xyz, target_mask, target_base)
+            if st is not None:
+                return self._chunk_knn_finish(*st)
         return chunked_knn_avg_sqdist(query_xyz, query_mask, target_xyz, target_mask,
                                       k=cfg.num_knn_points, tile=8192, query_chunk=16384)
+
+    def _knn_block_map(self, target_xyz, target_base=None):
+        """kNN-grained block layout of a map and its slots (original index ->
+        flat slot), built once per map: ``chunk_knn_block_cell`` cells, the
+        block count the pow-2 bucket of the real points x
+        ``chunk_knn_block_slack`` over the capacity.  (None, None) when the
+        build overflows, so the caller goes brute."""
+        hit = self._kbm_cache.get(target_xyz)
+        if hit is not None:
+            return hit
+        cfg = self.cfg
+        cap = cfg.chunk_knn_block_capacity
+        if target_base is None:
+            base = torch.ones((target_xyz.shape[0],), dtype=torch.bool, device=target_xyz.device)
+            n_real = target_xyz.shape[0]
+        else:
+            base, n_real = target_base, int(target_base.sum())
+        need = max((n_real * cfg.chunk_knn_block_slack + cap - 1) // cap, 1)
+        kbm, ov, slots = build_block_map_with_slots(
+            target_xyz, base, cfg.chunk_knn_block_cell, 1 << (need - 1).bit_length(), cap)
+        if ov > 0:
+            log.warning("chunk kNN block build overflow (%d pts); brute fallback", ov)
+            kbm = slots = None
+        return self._kbm_cache.put(target_xyz, (kbm, slots))
+
+    def _chunk_knn_start(self, query_xyz, query_mask, target_xyz, target_mask, target_base=None):
+        """Launch the chunked kNN against the map's cached block layout, with
+        ``target_mask`` as the subset in layout order.  Returns the state
+        :meth:`_chunk_knn_finish` takes, or None when the layout could not be
+        built."""
+        cfg = self.cfg
+        kbm, slots = self._knn_block_map(target_xyz, target_base)
+        if kbm is None:
+            return None
+        max_t = max(cfg.knn_avg_sqdist_threshold, cfg.weak_to_strong_sqdist_threshold)
+        clamp = float(np.sqrt(cfg.num_knn_points * max_t))
+        # target subset in layout order (slot n_blocks*cap is the sentinel of
+        # dropped points, cut off)
+        flat = kbm.num_blocks * kbm.block_capacity
+        extra = torch.zeros((flat + 1,), dtype=torch.bool, device=target_xyz.device)
+        extra[slots] = target_mask
+        extra = extra[:flat]
+        kb = min(cfg.chunk_knn_k_blocks, kbm.num_blocks)
+        res = chunk_knn_sqdists(query_xyz, query_mask, kbm, extra, clamp, k=cfg.num_knn_points,
+                                chunk=cfg.chunk_knn_chunk, k_blocks=kb,
+                                sort_cell=cfg.chunk_knn_sort_cell)
+        return res, kbm, extra, clamp, kb, query_xyz, query_mask, target_xyz, target_mask
+
+    def _chunk_knn_finish(self, res, kbm, extra, clamp, kb, query_xyz, query_mask,
+                          target_xyz, target_mask):
+        """The statistic of a chunked kNN call, with its overflowed chunks
+        re-resolved: their queries re-run at ``k_blocks x 8`` (a seam or
+        map-edge chunk needs more blocks, not a shorter chunk), and the
+        queries of chunks that still overflow go brute force, clamped.
+        Decisions stay exact at every pipeline threshold."""
+        cfg = self.cfg
+        d = res.sqdists.mean(-1)
+        bad = np.flatnonzero(res.chunk_overflow.cpu().numpy())
+        if not bad.size:
+            return d
+        ch, dev = cfg.chunk_knn_chunk, query_xyz.device
+        # original indices of the queries in overflowed chunks
+        pos = (bad[:, None] * ch + np.arange(ch)).ravel()
+        idx = res.order.cpu().numpy()[pos[pos < query_xyz.shape[0]]].astype(np.int64)
+        escalated, idx_brute = idx[:0], idx
+        kb2 = min(kb * 8, kbm.num_blocks)
+        if kb2 > kb:
+            escalated = idx
+            idx_t = torch.from_numpy(idx).to(dev)
+            sub_mask = query_mask[idx_t]
+            res2 = chunk_knn_sqdists(query_xyz[idx_t], sub_mask, kbm, extra, clamp,
+                                     k=cfg.num_knn_points, chunk=ch, k_blocks=kb2,
+                                     sort_cell=cfg.chunk_knn_sort_cell)
+            bad2 = np.flatnonzero(res2.chunk_overflow.cpu().numpy())
+            log.info("chunk kNN: %d/%d chunks escalated to k_blocks=%d (%d queries, "
+                     "%d chunks still over)", bad.size, res.chunk_overflow.shape[0], kb2,
+                     idx.size, bad2.size)
+            d[idx_t] = torch.where(sub_mask, res2.sqdists.mean(-1), d[idx_t])
+            # positions past idx.size are the last chunk's padding
+            pos2 =(bad2[:, None] * ch + np.arange(ch)).ravel()
+            idx_brute = idx[res2.order.cpu().numpy()[pos2[pos2 < idx.size]]]
+        if idx_brute.size:
+            idx_t = torch.from_numpy(idx_brute).to(dev)
+            sub_mask = query_mask[idx_t]
+            d_sub = chunked_knn_avg_sqdist(query_xyz[idx_t], sub_mask, target_xyz, target_mask,
+                                           k=cfg.num_knn_points)
+            d_sub = torch.minimum(d_sub, torch.tensor(clamp * clamp, dtype=torch.float32,
+                                                      device=dev))
+            d[idx_t] = torch.where(sub_mask, d_sub, d[idx_t])
+            log.info("chunk kNN: %d queries brute-forced", idx_brute.size)
+        self.chunk_knn_fallbacks.append({"escalated": escalated, "brute": idx_brute})
+        return d
 
     def _propagate_weak_to_strong(self, sess: RemovertSession, strong, weak):
         """``removeWeakNDMapPointsHavingStrongNDInNear``
@@ -448,6 +579,120 @@ class Removerter:
         distance to the strong set is below 1 m² join the strong set."""
         if not int(strong.sum()):
             return strong, weak
-        d = self._knn_stat(sess.map_xyz, weak, sess.map_xyz, strong)
+        d = self._knn_stat(sess.map_xyz, weak, sess.map_xyz, strong, target_base=sess.map_mask)
         promote = weak & (d < self.cfg.weak_to_strong_sqdist_threshold)
         return strong | promote, weak & ~promote
+
+    # ------------------------------------------------------------------
+    # artifacts (reference save tree, Removerter.cpp:30-50,1442-1650)
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _all_keyframe_winners(sets, pose_invs, fov, shape):
+        """For each keyframe, the winners of each ``(xyz, mask)`` set in that
+        keyframe's range image, as host (M, 3) arrays in its lidar frame: one
+        tuple a keyframe, so no (K, N, 3) stack is ever held."""
+        for Tinv in pose_invs:
+            out = []
+            for xyz, mask in sets:
+                local = apply_pose(xyz, Tinv)
+                out.append(local[winner_mask(local, mask, fov, shape)[0]].cpu().numpy())
+            yield tuple(out)
+
+    def _high_dyn_points(self, sess: RemovertSession) -> np.ndarray:
+        """``extractHighDynPointsViaKnnDiff`` (``Removerter.cpp:1591-1602``):
+        the scan points of every keyframe, in the global frame, whose kNN
+        statistic against the session's static map reaches the threshold,
+        one per voxel.  At full width the largest kNN call of a run."""
+        cfg = self.cfg
+        K = sess.num_keyframes
+        moved = transform(sess.scans_xyz[:K], sess.poses[:K, None, :3, :3], sess.poses[:K, None, :3, 3])
+        flat = moved.reshape(-1, 3)
+        fmask = sess.scans_mask[:K].reshape(-1)
+        d = self._knn_stat(flat, fmask, sess.map_xyz, sess.masks["static"], target_base=sess.map_mask)
+        pts = flat[fmask & (d >= cfg.knn_avg_sqdist_threshold)]
+        if len(pts):
+            pts = pts[voxel_unique_mask(pts, torch.ones_like(pts[:, 0], dtype=torch.bool),
+                                        cfg.downsample_voxel_size)]
+        return pts.cpu().numpy()
+
+    def _save_artifacts(self, result: RemovertResult, out_dir: str, fov) -> None:
+        """The reference's save tree: the global maps and their
+        per-resolution snapshots, the high-dynamic scan points, optional
+        range-image PNGs and the per-keyframe scan-wise updates."""
+        cfg = self.cfg
+        for sub in ("scans_updated", "scans_updated_strong", "scans_pd", "scans_pd_strong",
+                    "scans_nd_strong", "map_static", "map_dynamic"):
+            os.makedirs(os.path.join(out_dir, sub), exist_ok=True)
+        c, q = result.central, result.query
+
+        def save(name, pts):
+            write_pcd(os.path.join(out_dir, name), pts)
+
+        if cfg.save_map_pcd:
+            save("OriginalNoisyCentralMapGlobal.pcd", c.map_xyz[c.map_mask].cpu().numpy())
+            save("OriginalNoisyQueryMapGlobal.pcd", q.map_xyz[q.map_mask].cpu().numpy())
+            # the reference saves after every removal resolution
+            # (Removerter.cpp:318-338)
+            for sess, tag in ((c, "Central"), (q, "Query")):
+                for res in cfg.remove_resolution_list:
+                    sm = sess.masks.get(f"static@{res}")
+                    if sm is None:
+                        continue
+                    dm = sess.masks[f"dynamic@{res}"]
+                    save(f"map_static/{tag}StaticMapMapsideGlobalResX{res}.pcd",
+                         sess.map_xyz[sm].cpu().numpy())
+                    save(f"map_dynamic/{tag}DynamicMapMapsideGlobalResX{res}.pcd",
+                         sess.map_xyz[dm].cpu().numpy())
+            for fname, name in (("union_map_centralside", "coexist_c"),
+                                ("union_map_queryside", "coexist_q"), ("nd_map", "nd"),
+                                ("pd_map", "pd"), ("strong_nd_map", "nd_strong"),
+                                ("weak_nd_map", "nd_weak"), ("strong_pd_map", "pd_strong"),
+                                ("weak_pd_map", "pd_weak"), ("updated_map", "updated"),
+                                ("updated_map_strong", "updated_strong")):
+                save(f"{fname}.pcd", result.points(name))
+
+        if cfg.save_high_dyn_maps:
+            save("central_sess_high_dyn.pcd", self._high_dyn_points(c))
+            save("query_sess_high_dyn.pcd", self._high_dyn_points(q))
+
+        if cfg.save_range_image_pngs:
+            from ltm_torch.utils.viz import save_range_image_png, write_rimg_index
+
+            shape = rimg_shape(fov, cfg.remove_resolution_list[0])
+            rows = []
+            for k in (0, c.num_keyframes // 2):
+                scan_img = range_image(c.scans_xyz[k], c.scans_mask[k], fov, shape)
+                map_img = range_image(apply_pose(c.map_xyz, c.poses_inv[k]), c.map_mask, fov, shape)
+                scan_img, map_img = (x.reshape(shape).cpu().numpy() for x in (scan_img, map_img))
+                diff = np.where((scan_img < NO_POINT) & (map_img < NO_POINT),
+                                scan_img - map_img, NO_POINT)
+                for kind, img, lo, hi in (("scan", scan_img, cfg.rimg_color_min, cfg.rimg_color_max),
+                                          ("map", map_img, cfg.rimg_color_min, cfg.rimg_color_max),
+                                          ("diff", diff, -2.0, 2.0)):
+                    save_range_image_png(os.path.join(out_dir, f"rimg_{kind}_{k:04d}.png"), img,
+                                         vmin=lo, vmax=hi)
+                rows.append((k, c.names[k]))
+            write_rimg_index(os.path.join(out_dir, "rimg_index.html"), rows)
+
+        if not cfg.save_clean_scans_pcd:
+            return
+        # scan-wise updates of the central session (Removerter.cpp:1540-1650)
+        m = result.masks
+        sets = ((result.combined_xyz, m["updated"]), (result.combined_xyz, m["updated_strong"]),
+                (q.map_xyz, m["pd"]), (q.map_xyz, m["pd_strong"]),
+                (c.map_xyz, m["nd_weak"]), (c.map_xyz, m["nd_strong"]))
+        K = c.num_keyframes
+        winners = self._all_keyframe_winners(sets, c.poses_inv[:K], fov,
+                                             rimg_shape(fov, cfg.reprojection_alpha))
+        for name, (upd, upd_s, pd, pd_s, nd_w, nd_s) in zip(c.names, winners):
+            # final per-scan update = updated + weak ND + PD, one point a
+            # voxel (Session::updateScansScanwise, Session.cpp:362-380)
+            pts = np.concatenate([upd, nd_w, pd])
+            if len(pts):
+                pts_t = torch.from_numpy(pts)
+                pts = pts[voxel_unique_mask(pts_t, torch.ones(len(pts), dtype=torch.bool),
+                                            cfg.downsample_voxel_size).numpy()]
+            for sub, p in (("scans_updated", pts), ("scans_updated_strong", upd_s),
+                           ("scans_pd", pd), ("scans_pd_strong", pd_s),
+                           ("scans_nd_strong", nd_s)):
+                write_pcd(os.path.join(out_dir, sub, name), p)

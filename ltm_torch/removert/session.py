@@ -18,6 +18,9 @@ import torch
 
 from ltm_torch.core.config import RemovertConfig
 from ltm_torch.io import native
+from ltm_torch.io.pcd import read_kitti_bin, read_pcd
+from ltm_torch.io.poses import read_kitti_poses
+from ltm_torch.io.sessions import _file_index
 from ltm_torch.kernels.blocks import BlockMap, build_block_map
 from ltm_torch.kernels.projection import sumsq3, transform
 from ltm_torch.kernels.voxel import voxel_downsample_centroid
@@ -30,12 +33,30 @@ log = get_logger("ltm_torch.removert.session")
 
 @dataclass
 class RemovertInput:
-    """Host-side raw session: local-frame scans + base poses (in memory;
-    loading from scan directories comes with the CLI)."""
+    """Host-side raw session: local-frame scans + base poses, in memory or
+    loaded from a scan directory and a pose file (:meth:`from_dirs`)."""
 
     scans: List[np.ndarray]          # each (M_i, >=3) float32, lidar frame
     poses: np.ndarray                # (N, 4, 4) float64
     names: Optional[List[str]] = None
+
+    @classmethod
+    def from_dirs(cls, scan_dir: str, pose_path: str) -> "RemovertInput":
+        """Load a scan directory (.pcd, or KITTI .bin — the reference's
+        ``isScanFileKITTIFormat`` path) and a KITTI pose file.  Names sort by
+        their leading index ('10.pcd' after '2.pcd': the pose file's lines
+        are in scan-index order), or by name when one has no index."""
+        names = [n for n in os.listdir(scan_dir) if n.endswith((".pcd", ".bin"))]
+        try:
+            names.sort(key=_file_index)
+        except ValueError:
+            names.sort()
+        scans = [read_kitti_bin(os.path.join(scan_dir, n)) if n.endswith(".bin")
+                 else read_pcd(os.path.join(scan_dir, n)) for n in names]
+        poses = read_kitti_poses(pose_path)
+        if len(scans) != len(poses):
+            raise ValueError(f"{len(scans)} scans vs {len(poses)} poses")
+        return cls(scans=scans, poses=poses, names=names)
 
 
 def parse_keyframe_indices(num: int, start: int, end: int, gap: int) -> np.ndarray:

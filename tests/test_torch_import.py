@@ -18,6 +18,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_import_leaves_jax_and_ltm_out():
     code = ("import sys\n"
             "import ltm_torch, ltm_torch.removert.pipeline, ltm_torch.kernels.knn2\n"
+            "import ltm_torch.kernels.chunk_knn, ltm_torch.cli.ltremovert\n"
+            "import ltm_torch.io.pcd, ltm_torch.io.poses, ltm_torch.io.sessions\n"
+            "import ltm_torch.utils.viz, ltm_torch.utils.stagecache\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ltm'))\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
