@@ -18,8 +18,15 @@ sm_90a), then runs six phases, each of which raises on failure:
      one valid target, a ragged valid-query count and a km-scale case
      (timed); ``chunk_knn_sqdists`` (K4) on masked queries, a target
      subset, a forced overflow, an all-invalid tail of chunks, duplicate
-     targets and km-offset coordinates (timed), each with the plain
-     version's ``chunk_overflow`` and ``order``;
+     targets, km-offset coordinates (timed, with the scan at segments of
+     4, 8 and 16 listed blocks), one chunk whose list spans many segments,
+     a nearest target duplicated on both sides of a segment boundary, a
+     block at exactly the reach of a chunk inside a super-block, a chunk
+     with no hit, a call of an escalation's size, a block capacity of 201
+     with a misaligned ``target_extra``, and exactly ``k_blocks`` and
+     ``k_blocks + 1`` hits, each with the plain version's
+     ``chunk_overflow`` and ``order``, and the kernels' own counts of their
+     work (block tests, work items) equal to the plain steps';
   3. card vs CPU: ``Removerter.run`` on a small synthetic survey on the CPU
      (plain versions) and on the card (kernels); the 14 named point sets
      agree within max(2, 1e-4·|set|) points;
@@ -31,11 +38,14 @@ sm_90a), then runs six phases, each of which raises on failure:
      recorded call is then held to the plain version and timed against its
      bound, the plain version and ``cdist`` + ``topk``;
   5. full width, ``RemovertConfig()`` defaults (the chunked kNN), the same
-     runs; K4 must launch in every timed run and the 14 sets must equal
-     phase 4's.  Each recorded K4 call (ND, PD, promotion, their
-     escalations, and the high-dynamic extraction of ``_save_artifacts``)
-     is held to the plain version and timed against its bound and the K1
-     yardstick;
+     runs; K4's scan and merge must launch in every timed run and the 14
+     sets must equal phase 4's.  Each recorded K4 call (ND, PD, promotion,
+     their escalations, and the high-dynamic extraction of
+     ``_save_artifacts``) is held to the plain version and timed against
+     its bound and the K1 yardstick, whole and by part (the prep: keys,
+     sort and bounds; the scan, at segments of 4, 8 and 16 blocks), with its
+     per-kernel device times, the kernels' block tests a chunk and work
+     items, and merge launches;
   6. the CLI: ``python -m ltm_torch.cli.ltremovert`` in a subprocess on
      session directories of 8 keyframes x 120k points a session; its
      artifact tree must hold the expected files with the point counts of
@@ -209,10 +219,13 @@ def km_scale_case(rng, n=16385, m=300_000):
 
 
 def chunk_work(q, qm, bm, extra, clamp, chunk, k_blocks, sort_cell):
-    """(scored valid pairs, listed blocks) of a chunked 2-NN call on these
-    inputs: the chunks that did not overflow, each valid query against the
-    valid slots of the blocks its ball reaches (the plain version's block
-    test, counted instead of scored)."""
+    """The work of a chunked 2-NN call on these inputs, counted from the
+    plain steps: scored valid pairs (the chunks that did not overflow, each
+    valid query against the valid slots of the blocks its ball reaches) and
+    listed blocks, which the bound reads; and what the kernels count of
+    their own work, to hold their counts to: the chunks with a valid query,
+    the two-level cull's block tests (in all and the most in one chunk; the
+    single-level test made n_blocks a chunk) and the scoring's work items."""
     import torch
 
     from ltm_torch.kernels import chunk_knn as ck
@@ -223,17 +236,34 @@ def chunk_work(q, qm, bm, extra, clamp, chunk, k_blocks, sort_cell):
     slots = t_mask.sum(1).double()
     active = torch.nonzero(cnt > 0).squeeze(1)
     pairs = listed = 0.0
+    tests, scored = [], torch.zeros(cnt.shape[0], dtype=torch.int64, device=q.device)
     step = max(1, (1 << 22) // bval.shape[0])
     for a0 in range(0, active.shape[0], step):
         cs = active[a0:a0 + step]
-        c = center[cs][:, None, :]
-        gap = torch.clamp(torch.maximum(blo[None] - c, c - bhi[None]), min=0.0)
-        hit = bval[None] & (ck._sqrt(ck.sumsq3(gap)) <= reach[cs][:, None])
+        hit, t = ck._cull_two_level(center[cs], reach[cs], bval, blo, bhi)
         n_int = hit.sum(1)
         ok = n_int <= k_blocks
         pairs += float(((hit.double() @ slots) * cnt[cs] * ok).sum())
         listed += float((n_int * ok).sum())
-    return pairs, listed
+        scored[cs] = n_int * ok
+        tests.append(t)
+    tests = torch.cat(tests) if tests else torch.zeros(1, dtype=torch.int64)
+    return {"scored_pairs": pairs, "listed_blocks": listed,
+            "max_listed": int(scored.max()) if scored.numel() else 0,
+            "n_blocks": bm.num_blocks,
+            "plain_counts": {"work_items": int(ck._work_items(scored, chunk).shape[0]),
+                             "block_tests": int(tests.sum()), "chunks_culled": int(active.numel()),
+                             "max_block_tests": int(tests.max())}}
+
+
+def kernel_counts():
+    """The last chunk kNN scan's own counts, read from the card: work items,
+    block and super-block tests, chunks culled, the most tests in a chunk."""
+    from ltm_torch.kernels.chunk_knn import chunk_knn_sqdists
+
+    items, _taken, tests, culled, most = chunk_knn_sqdists.counts.tolist()
+    return {"work_items": items, "block_tests": tests, "chunks_culled": culled,
+            "max_block_tests": most}
 
 
 def chunk_bound(q, bm, n_chunks, pairs, listed):
@@ -252,23 +282,33 @@ def chunk_bound(q, bm, n_chunks, pairs, listed):
 
 def compare_chunk(name, q, qm, bm, extra, clamp_radius, k=2, chunk=256, k_blocks=64,
                   sort_cell=4.0, timed=False):
-    """Chunk kNN kernel vs plain on the card: the same bits in every row (NaN
-    rows of overflowed chunks included), the same overflow and order, one
-    launch.  A timed call is also timed against its bound and the K1
-    yardstick (the same targets through ``knn2_sqdists`` plus the clamp).
-    Returns stats."""
+    """Chunk kNN kernels vs plain on the card: the same bits in every row
+    (NaN rows of overflowed chunks included), the same overflow and order,
+    one scan launch and a merge launch when a chunk can list more than one
+    segment, and the kernels' own counts of their work (block tests, work
+    items) equal to the plain steps' (``chunk_work``).  A timed call is also
+    timed whole, by its parts (the prep: keys, sort and bounds; the scan:
+    cull, scoring and merge), with the scan at segments of 4, 8 and 16
+    listed blocks (each with the same bits), by kernel under the profiler,
+    and against its bound and the K1 yardstick (the same targets through
+    ``knn2_sqdists`` plus the clamp).  Returns stats."""
     import torch
 
+    from ltm_torch.kernels import chunk_knn as ck
     from ltm_torch.kernels.chunk_knn import chunk_knn_sqdists, chunk_knn_sqdists_plain
     from ltm_torch.kernels.knn2 import knn2_sqdists
 
     kw = dict(k=k, chunk=chunk, k_blocks=k_blocks, sort_cell=sort_cell)
-    before = chunk_knn_sqdists.launches, knn2_sqdists.launches, knn2_sqdists.merges
+    before = (chunk_knn_sqdists.launches, chunk_knn_sqdists.merges, knn2_sqdists.launches,
+              knn2_sqdists.merges)
     got = chunk_knn_sqdists(q, qm, bm, extra, clamp_radius, **kw)
     torch.cuda.synchronize()
-    if chunk_knn_sqdists.launches - before[0] != 1:
-        raise AssertionError(f"{name}: {chunk_knn_sqdists.launches - before[0]} launches, "
-                             f"expected 1")
+    counts = kernel_counts()
+    merges = int(min(k_blocks, bm.num_blocks) > ck._SEG)
+    if (chunk_knn_sqdists.launches - before[0], chunk_knn_sqdists.merges - before[1]) != (1, merges):
+        raise AssertionError(f"{name}: {chunk_knn_sqdists.launches - before[0]} scan and "
+                             f"{chunk_knn_sqdists.merges - before[1]} merge launches, expected "
+                             f"1 and {merges}")
     holder = []
     plain_ms = cuda_ms(lambda: holder.append(
         chunk_knn_sqdists_plain(q, qm, bm, extra, clamp_radius, **kw)), reps=1)
@@ -287,16 +327,34 @@ def compare_chunk(name, q, qm, bm, extra, clamp_radius, k=2, chunk=256, k_blocks
     stats = {"case": name, "n": q.shape[0], "n_valid": n_valid, "chunks": over.size,
              "overflowed_chunks": int((over > 0).sum()), "k_blocks": k_blocks,
              "blocks": bm.num_blocks, "block_capacity": bm.block_capacity, "ulps": ulps,
-             "max_abs_err": float(np.abs(g[fin] - r[fin]).max(initial=0.0))}
+             "max_abs_err": float(np.abs(g[fin] - r[fin]).max(initial=0.0)),
+             "merge_launches": merges}
+    stats.update(chunk_work(q, qm, bm, extra, clamp_radius, chunk, k_blocks, sort_cell))
+    plain_counts = stats.pop("plain_counts")
+    if counts != plain_counts:
+        raise AssertionError(f"{name}: the kernels counted {counts}, the plain steps "
+                             f"{plain_counts}")
+    stats.update(counts)
+    stats["block_tests_per_chunk"] = counts["block_tests"] / max(counts["chunks_culled"], 1)
     if timed:
-        pairs, listed = chunk_work(q, qm, bm, extra, clamp_radius, chunk, k_blocks, sort_cell)
-        stats["scored_pairs"], stats["listed_blocks"] = pairs, listed
         stats["kernel_ms"] = cuda_ms(lambda: chunk_knn_sqdists(q, qm, bm, extra, clamp_radius,
                                                                **kw), reps=5)
+        targets = ck._target_arrays(bm, extra)
+        order, bounds = ck._prep_cuda(q, qm, targets, sort_cell)
+        stats["prep_ms"] = cuda_ms(lambda: ck._prep_cuda(q, qm, targets, sort_cell), reps=5)
+        stats["scan_ms_by_seg"] = seg_sweep(name, got.sqdists, q, qm, order, targets, bounds,
+                                            clamp_radius, chunk, k_blocks)
+        stats["scan_ms"] = stats["scan_ms_by_seg"][str(ck._SEG)]
+        by_kernel = device_profile(lambda: chunk_knn_sqdists(q, qm, bm, extra, clamp_radius,
+                                                             **kw), top=20)["top_device_ms"]
+        stats["device_ms_by_kernel"] = by_kernel or "not measured"
+        stats["merge_ms"] = next((v for key, v in by_kernel.items() if "ck_merge" in key),
+                                 "not measured")
         stats["plain_ms"] = plain_ms
         stats["bound_ms"], stats["bound_by"], stats["gather_ms"] = chunk_bound(
-            q, bm, over.size, pairs, listed)
+            q, bm, over.size, stats["scored_pairs"], stats["listed_blocks"])
         stats["bound_share"] = stats["bound_ms"] / stats["kernel_ms"]
+        stats["scan_bound_share"] = stats["bound_ms"] / stats["scan_ms"]
         t, tm = bm.xyz.reshape(-1, 3), bm.mask.reshape(-1)
         if extra is not None:
             tm = tm & extra
@@ -304,8 +362,32 @@ def compare_chunk(name, q, qm, bm, extra, clamp_radius, k=2, chunk=256, k_blocks
         stats["k1_yardstick_ms"] = cuda_ms(lambda: torch.minimum(knn2_sqdists(q, qm, t, tm), r2),
                                            reps=3)
     # comparison launches do not count
-    chunk_knn_sqdists.launches, knn2_sqdists.launches, knn2_sqdists.merges = before
+    (chunk_knn_sqdists.launches, chunk_knn_sqdists.merges, knn2_sqdists.launches,
+     knn2_sqdists.merges) = before
     return stats
+
+
+def seg_sweep(name, want, q, qm, order, targets, bounds, clamp_radius, chunk, k_blocks,
+              segs=(4, 8, 16), rounds=5):
+    """{seg: median ms} of the scan alone with work items of ``seg`` listed
+    blocks, timed in turns (one call of each a round, so drift spreads over
+    all), each with the bits of ``want``."""
+    import torch
+
+    from ltm_torch.kernels import chunk_knn as ck
+
+    def scan(seg):
+        return ck._scan_cuda(q, qm, order, targets, bounds, clamp_radius, chunk, k_blocks,
+                             seg=seg)[0]
+
+    for seg in segs:
+        if not torch.equal(scan(seg).view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"{name}: the scan at segments of {seg} gives other bits")
+    times = {seg: [] for seg in segs}
+    for _ in range(rounds):
+        for seg in segs:
+            times[seg].append(cuda_ms(lambda: scan(seg), reps=1))
+    return {str(seg): statistics.median(t) for seg, t in times.items()}
 
 
 def sass_hot_blocks(lib_path):
@@ -469,8 +551,8 @@ def phase_chunk_cases(dev):
     km-offset stats."""
     import torch
 
-    from ltm_torch.kernels.blocks import build_block_map_with_slots
-    from ltm_torch.kernels.chunk_knn import chunk_knn_sqdists
+    from ltm_torch.kernels import chunk_knn as ck
+    from ltm_torch.kernels.blocks import BlockMap, build_block_map_with_slots
 
     def on_card(*arrays):
         return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
@@ -482,6 +564,12 @@ def phase_chunk_cases(dev):
         if ov:
             raise AssertionError("phase 2 block layout overflowed")
         return bm
+
+    def manual_layout(pts):
+        """A block map of (n_blocks, cap, 3) points, every slot valid."""
+        xyz = torch.from_numpy(np.ascontiguousarray(pts, np.float32)).to(dev)
+        z = torch.zeros(1, device=dev)
+        return BlockMap(xyz, torch.ones(pts.shape[:2], dtype=torch.bool, device=dev), z, z, z, z, z)
 
     rng = np.random.default_rng(1)
     t = rng.uniform(-30, 30, (50_000, 3)).astype(np.float32)
@@ -505,24 +593,83 @@ def phase_chunk_cases(dev):
         ("chunk_km_offset", *on_card(km_q, km_qm), layout(km_t, km_tm, 12.5, 128), None,
          dict(clamp_radius=float(np.sqrt(2.0)), k_blocks=3072)),
     ]
-    km = None
+    # one chunk over the whole cube: its list spans many segments
+    cases.append(("chunk_long_list", *on_card(rng.uniform(-30, 30, (256, 3)).astype(np.float32),
+                                              np.ones(256, bool)), bm, None,
+                  dict(clamp_radius=2.0, k_blocks=4096, sort_cell=8.0)))
+    # one super-block of 32 blocks, listed in block order: the nearest target
+    # is duplicated at the end of the first segment's last block and the
+    # start of the second segment's first block
+    pts = rng.normal(size=(32, 16, 3))
+    pts *= rng.uniform(1.5, 2.9, (32, 16, 1)) / np.linalg.norm(pts, axis=2, keepdims=True)
+    pts[ck._SEG - 1, 15] = pts[ck._SEG, 0] = [1.0, 0.0, 0.0]
+    cases.append(("chunk_segment_duplicate", *on_card(np.zeros((8, 3), np.float32),
+                                                      np.ones(8, bool)),
+                  manual_layout(pts), None, dict(clamp_radius=3.0, chunk=8, k_blocks=64)))
+    # queries 0 and 0.5 on x: center 0.25, reach 0.25 + 1.5 = 1.75 exactly;
+    # block 5's AABB starts at x = 2 (gap exactly 1.75: listed), block 6's one
+    # ulp beyond (not listed), inside super-block 0 with block 0 (near) and
+    # far blocks; k_blocks = 1 shows the hit count as the overflow
+    pts = rng.uniform(10, 11, (64, 16, 3))
+    pts[0] = rng.uniform(-0.2, 0.2, (16, 3))
+    for b, x0 in ((5, np.float32(2.0)), (6, np.nextafter(np.float32(2.0), np.float32(3.0)))):
+        pts[b] = np.c_[rng.uniform(2.1, 2.5, 16), rng.uniform(-0.5, 0.5, (16, 2))]
+        pts[b, 0, 0] = x0
+    qb = np.array([[0.0, 0, 0], [0.5, 0, 0]], np.float32)
+    for kb in (1, 64):
+        cases.append((f"chunk_reach_boundary_k{kb}", *on_card(qb, np.ones(2, bool)),
+                      manual_layout(pts), None,
+                      dict(clamp_radius=1.5, chunk=2, k_blocks=kb, sort_cell=4.0)))
+    cases.append(("chunk_no_hit", *on_card(q[:300] + np.float32(5000.0), np.ones(300, bool)), bm,
+                  None, near))
+    # a call of an escalation's size (ties in the keys, invalid queries last)
+    cases.append(("chunk_small_call", *on_card(q[:8000], qm[:8000]), bm, None, near))
+    # 201 slots a block (two staged pieces, the second of 73 slots; every
+    # block at another alignment) and a target_extra at an odd byte offset
+    bm201 = layout(t, tm, 8.0, 201)
+    extra201 = torch.from_numpy(rng.uniform(size=bm201.mask.numel() + 3) > 0.5).to(dev)[3:]
+    cases.append(("chunk_odd_capacity", *on_card(q, qm), bm201, extra201, near))
+    km = masked = None
     for name, qq, qqm, b, ex, kw in cases:
-        st = compare_chunk(name, qq, qqm, b, ex, timed=(name == "chunk_km_offset"), **kw)
-        if name == "chunk_forced_overflow" and st["overflowed_chunks"] == 0:
-            raise AssertionError("forced overflow: no chunk overflowed")
-        if name != "chunk_forced_overflow" and st["overflowed_chunks"]:
-            raise AssertionError(f"{name}: {st['overflowed_chunks']} chunks overflowed")
-        if name == "chunk_invalid_tail" and st["chunks"] <= -(-5_000 // 256):
-            raise AssertionError("invalid tail: no all-invalid chunk")
-        if name == "chunk_duplicates":
-            got = chunk_knn_sqdists(qq, qqm, b, ex, **kw).sqdists.cpu().numpy()
-            if not np.array_equal(got, np.ones((8, 2), np.float32)):
-                raise AssertionError("chunk kNN: duplicate targets must count twice")
-        log(f"[2] {json.dumps(st)}")
+        st = check_chunk_case(name, qq, qqm, b, ex, kw)
         if name == "chunk_km_offset":
             km = st
-    chunk_knn_sqdists.launches = 0
+        if name == "chunk_masked":
+            masked = st
+    # exactly k_blocks hits in the fullest chunk, then k_blocks + 1
+    top = masked["max_listed"]
+    for name, kb in (("chunk_k_blocks_exact", top), ("chunk_k_blocks_plus_one", top - 1)):
+        check_chunk_case(name, *on_card(q, qm), bm, None, dict(near, k_blocks=kb))
+    ck.chunk_knn_sqdists.launches = ck.chunk_knn_sqdists.merges = 0
     return km
+
+
+def check_chunk_case(name, q, qm, bm, extra, kw):
+    """``compare_chunk`` on one phase-2 case, and the case's own checks."""
+    from ltm_torch.kernels.chunk_knn import _SEG, chunk_knn_sqdists
+
+    st = compare_chunk(name, q, qm, bm, extra, timed=(name == "chunk_km_offset"), **kw)
+    overflows = name in ("chunk_forced_overflow", "chunk_reach_boundary_k1",
+                         "chunk_k_blocks_plus_one")
+    if overflows != bool(st["overflowed_chunks"]):
+        raise AssertionError(f"{name}: {st['overflowed_chunks']} chunks overflowed")
+    got = chunk_knn_sqdists(q, qm, bm, extra, **kw)
+    rows = got.sqdists.cpu().numpy()
+    if name == "chunk_invalid_tail" and st["chunks"] <= -(-5_000 // 256):
+        raise AssertionError("invalid tail: no all-invalid chunk")
+    if name in ("chunk_duplicates", "chunk_segment_duplicate") and not np.array_equal(
+            rows, np.ones((8, 2), np.float32)):
+        raise AssertionError(f"{name}: duplicate targets must count twice")
+    if name == "chunk_long_list" and st["max_listed"] < 10 * _SEG:
+        raise AssertionError(f"long list: only {st['max_listed']} listed blocks")
+    if name == "chunk_reach_boundary_k1" and got.chunk_overflow.tolist() != [1]:
+        raise AssertionError("reach boundary: the block at exactly reach is not listed")
+    if name == "chunk_no_hit" and not np.all(rows == np.float32(kw["clamp_radius"] ** 2)):
+        raise AssertionError("no hit: rows must be the clamp")
+    if name == "chunk_k_blocks_plus_one" and int(got.chunk_overflow.max()) != 1:
+        raise AssertionError("k_blocks + 1: the fullest chunk must overflow by one")
+    log(f"[2] {json.dumps(st)}")
+    return st
 
 
 def phase_card_vs_cpu(cfg):
@@ -686,7 +833,8 @@ def phase_default_config(cfg, brute_masks):
         reset_stage_times()
         reset_slot_counts()
         torch.cuda.synchronize()
-        chunk_knn_sqdists.launches = knn2_sqdists.launches = knn2_sqdists.merges = 0
+        chunk_knn_sqdists.launches = chunk_knn_sqdists.merges = 0
+        knn2_sqdists.launches = knn2_sqdists.merges = 0
         pipe.chunk_knn_sqdists = recording if i == 0 else chunk_knn_sqdists
         try:
             t0 = time.perf_counter()
@@ -695,12 +843,15 @@ def phase_default_config(cfg, brute_masks):
             wall = time.perf_counter() - t0
         finally:
             pipe.chunk_knn_sqdists = chunk_knn_sqdists
-        if chunk_knn_sqdists.launches <= 0:
-            raise AssertionError("the default-configuration run launched no chunk kNN kernel")
+        if chunk_knn_sqdists.launches <= 0 or chunk_knn_sqdists.merges <= 0:
+            raise AssertionError(f"the default-configuration run launched the chunk kNN scan "
+                                 f"{chunk_knn_sqdists.launches} and its merge "
+                                 f"{chunk_knn_sqdists.merges} times; both must run")
         n_kf = result.central.num_keyframes + result.query.num_keyframes
         fb = rm.chunk_knn_fallbacks
         runs.append({"run": i, "wall_s": wall, "keyframes_per_s": n_kf / wall,
                      "k4_launches": chunk_knn_sqdists.launches,
+                     "k4_merge_launches": chunk_knn_sqdists.merges,
                      "knn2_launches": knn2_sqdists.launches,
                      "escalated_queries": sum(len(f["escalated"]) for f in fb),
                      "brute_forced_queries": sum(len(f["brute"]) for f in fb),
@@ -715,6 +866,7 @@ def phase_default_config(cfg, brute_masks):
         "median_keyframes_per_s": statistics.median(r["keyframes_per_s"] for r in timed),
         "median_wall_s": statistics.median(r["wall_s"] for r in timed),
         "k4_launches_per_run": [r["k4_launches"] for r in timed],
+        "k4_merge_launches_per_run": [r["k4_merge_launches"] for r in timed],
         "escalated_queries_per_run": [r["escalated_queries"] for r in timed],
         "brute_forced_queries_per_run": [r["brute_forced_queries"] for r in timed],
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
@@ -831,7 +983,9 @@ def main() -> int:
     nd = calls[0]
     k4_nd = next(st for st in k4_calls if st["case"] == "full_width_nd")
     per_call = ("case", "n_valid", "scored_pairs", "listed_blocks", "overflowed_chunks",
-                "k_blocks", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "gather_ms",
+                "k_blocks", "chunks_culled", "block_tests_per_chunk", "max_block_tests",
+                "work_items", "merge_launches", "kernel_ms", "prep_ms", "scan_ms",
+                "scan_ms_by_seg", "merge_ms", "plain_ms", "bound_ms", "bound_by", "gather_ms",
                 "k1_yardstick_ms")
     kernels = [{
         "name": "knn2_sqdists",
@@ -861,10 +1015,18 @@ def main() -> int:
     }, {
         "name": "chunk_knn_sqdists",
         "route": "cuda",
+        "route_kernels": ["ck_cell_min, ck_keys (Morton keys, query indices)",
+                          "CUB DeviceRadixSort::SortPairs (their stable order, in the prep's "
+                          "C call)",
+                          "ck_bounds (block and super-block AABBs)",
+                          "ck_cull (a chunk's ball, the two-level cull, work items)",
+                          "ck_score (persistent warps over the work items)",
+                          "ck_merge (rows of chunks split over several items)"],
         "source": "ltm_torch/csrc/chunk_knn.cu",
         "replaces": "ltm/kernels/chunk_knn.py:119",
         "launches": k4_run["k4_launches"],
         "launches_path": "phase 5 (RemovertConfig() defaults)",
+        "merge_launches": k4_run["k4_merge_launches"],
         "max_abs_err": max(st["max_abs_err"] for st in k4_calls),
         "ms": k4_nd["kernel_ms"],
         "plain_ms": k4_nd["plain_ms"],
@@ -873,8 +1035,12 @@ def main() -> int:
         "library_ms": None,
         "k1_yardstick_ms": k4_nd["k1_yardstick_ms"],
         "per_launch": [{k: st.get(k) for k in per_call} for st in k4_calls],
+        "scan_ms": k4_nd["scan_ms"],
         "km_offset_ms": km4["kernel_ms"],
+        "km_offset_scan_ms": km4["scan_ms"],
+        "km_offset_scan_ms_by_seg": km4["scan_ms_by_seg"],
         "km_offset_bound_ms": km4["bound_ms"],
+        "km_offset_k1_yardstick_ms": km4["k1_yardstick_ms"],
     }]
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,8 @@
 """Occupancy-adaptive chunked 2-NN over block-structured maps (port of
-``ltm.kernels.chunk_knn``): the hand-written CUDA scan
+``ltm.kernels.chunk_knn``): the hand-written CUDA kernels
 (``ltm_torch/csrc/chunk_knn.cu``, replacing the XLA-lowered
-``ltm/kernels/chunk_knn.py::_scan_chunks``), its wrapper and its plain
-PyTorch version.
+``ltm/kernels/chunk_knn.py::chunk_knn_sqdists`` with its scan
+``_scan_chunks``), their wrapper and the plain PyTorch version.
 
 Queries are Morton-sorted and cut into fixed chunks; per chunk, only the
 target blocks whose tight AABB lies within ``radius + clamp_radius`` of the
@@ -21,10 +21,15 @@ and a NaN cannot be mistaken for a distance.  Every other row matches
 ``ltm`` bit for bit: distances are the FMA chain of ``projection.sumsq3``,
 and the top 2 of a multiset does not depend on the order it is taken in.
 
-``chunk_knn_sqdists`` launches the kernel for CUDA tensors (k = 2) and
-takes :func:`_scan_chunks_plain` for CPU tensors; a CUDA call launches the
-kernel or raises.  Sorting, the block bounds and the write-back by
-``order`` are torch ops on either device.
+``chunk_knn_sqdists`` takes :func:`chunk_knn_sqdists_plain` for CPU
+tensors.  For CUDA tensors (k = 2) it launches the kernels in two C calls:
+the prep (the Morton keys, their stable radix sort, the block and
+super-block bounds) and the scan (a two-level cull a chunk, persistent
+warps over (chunk, segment) work items, and a merge of the chunks split
+over several items); a CUDA call launches them or raises.  The plain
+versions of the cull and the work-item plan (:func:`_super_bounds`,
+:func:`_cull_two_level`, :func:`_work_items`) are what the CPU tests and
+``chip_smoke.py`` hold the kernels' own counts to.
 """
 
 from __future__ import annotations
@@ -43,6 +48,15 @@ __all__ = ["ChunkKnnResult", "chunk_knn_sqdists", "chunk_knn_sqdists_plain", "ch
 _BIG = 1e30
 _PAIRS = 1 << 22          # plain version: pairs scored per step (bounds its memory)
 _BLOCK_TESTS = 1 << 22    # plain version: chunk x block tests per batch
+
+# kMaxChunk, kSlab, kSuper, kPrepCtas, kCounts of csrc/chunk_knn.cu,
+# checked when it loads
+_MAX_CHUNK = 1024   # queries a chunk
+_SLAB = 256         # queries a work item (8 a lane of one warp)
+_SUPER = 32         # blocks a super-block
+_PREP_CTAS = 512    # CTAs of the cell minimum
+_COUNTS = 5         # counts a scan writes (see chunk_knn_sqdists)
+_SEG = 4            # listed blocks a work item, passed to the scan (chip_smoke.seg_sweep)
 
 
 class ChunkKnnResult(NamedTuple):
@@ -100,7 +114,7 @@ def _prep_sorted_chunks(query_xyz, query_mask, chunk: int, sort_cell: float):
 
 def _tree_sum(x: torch.Tensor) -> torch.Tensor:
     """Sum over axis 1 as a pairwise tree over the next power of two (zero
-    padded): ``x[:, :h] + x[:, h:]`` until one row is left.  The CUDA scan
+    padded): ``x[:, :h] + x[:, h:]`` until one row is left.  The CUDA cull
     reduces its chunk's center in the same order, so both give the same bits."""
     p = 1 << (x.shape[1] - 1).bit_length()
     if p != x.shape[1]:
@@ -119,9 +133,17 @@ def _chunk_balls(qx, qm, clamp_radius: float):
     return cnt, center, rad + torch.tensor(clamp_radius, dtype=torch.float32, device=qx.device)
 
 
+def _block_hits(center, reach, bval, blo, bhi):
+    """(A, B) bool: box b is valid and its point-to-AABB distance from
+    center a is at most reach a."""
+    c = center[:, None, :]
+    gap = torch.clamp(torch.maximum(blo[None] - c, c - bhi[None]), min=0.0)
+    return bval[None] & (_sqrt(sumsq3(gap)) <= reach[:, None])
+
+
 def _scan_chunks_plain(qx, qm, bm_xyz, t_mask, bval, blo, bhi, clamp_radius: float,
                        k: int, k_blocks: int):
-    """Plain PyTorch version of the CUDA scan.  Returns (chunk_overflow (C,)
+    """Plain PyTorch version of the scan.  Returns (chunk_overflow (C,)
     int32, d (C, chunk, k)).
 
     Chunks with a valid query are tested against every block in batches of
@@ -141,9 +163,7 @@ def _scan_chunks_plain(qx, qm, bm_xyz, t_mask, bval, blo, bhi, clamp_radius: flo
     step = max(1, _BLOCK_TESTS // max(bval.shape[0], 1))
     for a0 in range(0, active.shape[0], step):
         cs = active[a0:a0 + step]
-        c = center[cs][:, None, :]
-        gap = torch.clamp(torch.maximum(blo[None] - c, c - bhi[None]), min=0.0)
-        hit = bval[None] & (_sqrt(sumsq3(gap)) <= reach[cs][:, None])
+        hit = _block_hits(center[cs], reach[cs], bval, blo, bhi)
         n_int = hit.sum(1)
         overflow[cs] = torch.clamp(n_int - k_blocks, min=0).int()
         for j, (ci, n_hit) in enumerate(zip(cs.tolist(), n_int.tolist())):
@@ -163,28 +183,29 @@ def _scan_chunks_plain(qx, qm, bm_xyz, t_mask, bval, blo, bhi, clamp_radius: flo
     return overflow, d
 
 
-def _chunk_knn(scan, query_xyz, query_mask, bm: BlockMap, target_extra, clamp_radius: float,
-               k: int, chunk: int, k_blocks: int, sort_cell: float) -> ChunkKnnResult:
-    """Sort, chunk, ``scan`` and write back by ``order`` (either version)."""
-    if query_xyz.dtype != torch.float32 or bm.xyz.dtype != torch.float32:
-        raise ValueError("chunk kNN takes float32 points")
-    if bm.xyz.device != query_xyz.device or query_mask.device != query_xyz.device:
-        raise ValueError("queries and the block map must be on one device")
+def chunk_knn_sqdists_plain(query_xyz, query_mask, bm: BlockMap, target_extra,
+                            clamp_radius: float, k: int = 2, chunk: int = 512,
+                            k_blocks: int = 64, sort_cell: float = 25.0) -> ChunkKnnResult:
+    """:func:`chunk_knn_sqdists` through the plain scan, on either device:
+    sort, chunk, scan and write back by ``order``."""
+    _check(query_xyz, query_mask, bm)
     n = query_xyz.shape[0]
     t_mask, bval, blo, bhi = _block_bounds(bm, target_extra)
     qx, qm, order = _prep_sorted_chunks(query_xyz, query_mask, chunk, sort_cell)
-    overflow, d = scan(qx, qm, bm.xyz, t_mask, bval, blo, bhi, clamp_radius, k, k_blocks)
+    overflow, d = _scan_chunks_plain(qx, qm, bm.xyz, t_mask, bval, blo, bhi, clamp_radius, k,
+                                     k_blocks)
     res = torch.empty((n, k), dtype=torch.float32, device=query_xyz.device)
     res[order] = d.reshape(-1, k)[:n]
     return ChunkKnnResult(res, overflow, order.int())
 
 
-def chunk_knn_sqdists_plain(query_xyz, query_mask, bm: BlockMap, target_extra,
-                            clamp_radius: float, k: int = 2, chunk: int = 512,
-                            k_blocks: int = 64, sort_cell: float = 25.0) -> ChunkKnnResult:
-    """:func:`chunk_knn_sqdists` through the plain scan, on either device."""
-    return _chunk_knn(_scan_chunks_plain, query_xyz, query_mask, bm, target_extra,
-                      clamp_radius, k, chunk, k_blocks, sort_cell)
+def _check(query_xyz, query_mask, bm: BlockMap):
+    if query_xyz.dtype != torch.float32 or bm.xyz.dtype != torch.float32:
+        raise ValueError("chunk kNN takes float32 points")
+    if query_mask.dtype != torch.bool or query_mask.shape != query_xyz.shape[:1]:
+        raise ValueError("chunk kNN takes a bool query mask, one entry a query")
+    if bm.xyz.device != query_xyz.device or query_mask.device != query_xyz.device:
+        raise ValueError("queries and the block map must be on one device")
 
 
 def chunk_knn_sqdists(
@@ -201,8 +222,13 @@ def chunk_knn_sqdists(
     """(N, k) clamped ascending squared distances plus the per-chunk overflow
     and the sort order, as ``ltm.kernels.chunk_knn.chunk_knn_sqdists``.
 
-    CUDA tensors launch ``csrc/chunk_knn.cu`` once (k = 2 only; counted in
-    ``chunk_knn_sqdists.launches``); CPU tensors take the plain version."""
+    CUDA tensors launch ``csrc/chunk_knn.cu`` (k = 2 only; calls that
+    launched the scan are counted in ``chunk_knn_sqdists.launches``, those
+    that also launched the merge in ``chunk_knn_sqdists.merges``, and
+    ``chunk_knn_sqdists.counts`` holds the last scan's own counts on the
+    device: work items, work items taken, block and super-block tests,
+    chunks culled, the most tests in one chunk); CPU tensors take the plain
+    version."""
     dev = query_xyz.device
     if dev.type == "cpu":
         return chunk_knn_sqdists_plain(query_xyz, query_mask, bm, target_extra, clamp_radius,
@@ -211,11 +237,25 @@ def chunk_knn_sqdists(
         raise ValueError(f"chunk_knn_sqdists runs on cuda or cpu, not {dev}")
     if k != 2:
         raise ValueError(f"the chunk kNN kernel computes k=2, not k={k}")
-    return _chunk_knn(_scan_chunks_cuda, query_xyz, query_mask, bm, target_extra,
-                      clamp_radius, k, chunk, k_blocks, sort_cell)
+    _check(query_xyz, query_mask, bm)
+    n = query_xyz.shape[0]
+    if n == 0:
+        return ChunkKnnResult(query_xyz.new_empty((0, 2)),
+                              torch.empty((0,), dtype=torch.int32, device=dev),
+                              torch.empty((0,), dtype=torch.int32, device=dev))
+    if n >= 2**31:
+        raise ValueError("chunk kNN kernel takes fewer than 2^31 queries")
+    q, qm = query_xyz.contiguous(), query_mask.contiguous()
+    targets = _target_arrays(bm, target_extra)
+    with torch.cuda.device(dev):
+        order, bounds = _prep_cuda(q, qm, targets, sort_cell)
+        out, overflow = _scan_cuda(q, qm, order, targets, bounds, clamp_radius, chunk, k_blocks)
+    return ChunkKnnResult(out, overflow, order)
 
 
-chunk_knn_sqdists.launches = 0   # scan kernel launches
+chunk_knn_sqdists.launches = 0   # calls that launched the scan (cull and scoring)
+chunk_knn_sqdists.merges = 0     # calls that launched the merge of split chunks
+chunk_knn_sqdists.counts = None  # (_COUNTS,) int64 on the card: the last scan's counts
 
 
 def chunk_knn_avg_sqdist(query_xyz, query_mask, bm, target_extra, clamp_radius,
@@ -229,49 +269,148 @@ def chunk_knn_avg_sqdist(query_xyz, query_mask, bm, target_extra, clamp_radius,
     return r.sqdists.mean(-1), r.chunk_overflow.sum()
 
 
-# ---- the kernel's Python side ---------------------------------------------
+# ---- plain versions of the kernels' own steps -------------------------------
 
-def _scan_chunks_cuda(qx, qm, bm_xyz, t_mask, bval, blo, bhi, clamp_radius: float,
-                      k: int, k_blocks: int):
-    """The kernel route of the scan (k = 2): one launch, one CTA a chunk."""
-    C, chunk = qm.shape
-    n_blocks, cap = t_mask.shape
-    dev = qx.device
-    lib = _lib()
-    max_chunk, max_cap, max_list = _limits()
-    if not (0 < chunk <= max_chunk and 0 < cap <= max_cap):
-        raise ValueError(f"chunk kNN kernel takes chunk <= {max_chunk} and block capacity "
-                         f"<= {max_cap}, got {chunk} and {cap}")
-    if min(k_blocks, n_blocks) > max_list:
-        raise ValueError(f"chunk kNN kernel lists at most {max_list} blocks a chunk, "
-                         f"got k_blocks={k_blocks} over {n_blocks} blocks")
-    if k_blocks < 1 or C * chunk >= 2**31 or n_blocks * cap >= 2**31:
-        raise ValueError("chunk kNN kernel: k_blocks >= 1 and fewer than 2^31 slots a side")
-    d = torch.empty((C, chunk, 2), dtype=torch.float32, device=dev)
-    overflow = torch.empty((C,), dtype=torch.int32, device=dev)
-    if C == 0:
-        return overflow, d
-    args = [x.contiguous() for x in (qx, qm, bm_xyz, t_mask, bval, blo, bhi)]
-    with torch.cuda.device(dev):
-        rc = lib.ltm_chunk_knn_scan(
-            *(x.data_ptr() for x in args), C, chunk, n_blocks, cap,
-            ctypes.c_float(clamp_radius), ctypes.c_float(clamp_radius * clamp_radius),
-            k_blocks, d.data_ptr(), overflow.data_ptr(), torch.cuda.current_stream().cuda_stream)
+def _super_bounds(bval, blo, bhi, group: int = _SUPER):
+    """(sval, slo, shi): validity and AABB of each super-block of ``group``
+    consecutive blocks (the last one may be short), over its valid blocks;
+    what ``ck_bounds`` writes beside the blocks' own bounds."""
+    nb = bval.shape[0]
+    ns = -(-nb // group)
+    pad = ns * group - nb
+    lo = torch.where(bval[:, None], blo, torch.inf)
+    hi = torch.where(bval[:, None], bhi, -torch.inf)
+    lo = torch.cat([lo, lo.new_full((pad, 3), torch.inf)]).reshape(ns, group, 3)
+    hi = torch.cat([hi, hi.new_full((pad, 3), -torch.inf)]).reshape(ns, group, 3)
+    val = torch.cat([bval, bval.new_zeros(pad)]).reshape(ns, group)
+    return val.any(1), lo.amin(1), hi.amax(1)
+
+
+def _cull_two_level(center, reach, bval, blo, bhi, group: int = _SUPER):
+    """(hit (A, n_blocks) bool, tests (A,) int64): ``ck_cull``'s two-level
+    test.  A block is tested only inside a super-block that passes the same
+    test; ``tests`` counts a chunk's tests as the kernel does, every
+    super-block plus the blocks of each super-block hit.  Exact: ``hit`` is
+    :func:`_block_hits` (a super-block's rounded gap is never above any of
+    its blocks')."""
+    sval, slo, shi = _super_bounds(bval, blo, bhi, group)
+    shit = _block_hits(center, reach, sval, slo, shi)
+    inside = shit.repeat_interleave(group, 1)[:, :bval.shape[0]]
+    hit = inside & _block_hits(center, reach, bval, blo, bhi)
+    return hit, sval.shape[0] + inside.sum(1)
+
+
+def _work_items(listed: torch.Tensor, chunk: int, seg: int = _SEG, slab: int = _SLAB):
+    """(I, 3) int64 rows (chunk, slab, segment): the work items ``ck_cull``
+    appends for chunks that list ``listed`` blocks (0 for a chunk the
+    scoring skips: empty, overflowed or with no hit), here in chunk order
+    (on the card in any order).  Item (c, s, g) scores queries
+    ``[s·slab, min((s+1)·slab, chunk))`` of chunk c against its listed
+    blocks ``[g·seg, min((g+1)·seg, listed[c]))``."""
+    listed = listed.long().cpu()
+    nseg = (listed + seg - 1) // seg
+    per = nseg * -(-chunk // slab)
+    c = torch.repeat_interleave(torch.arange(listed.numel()), per)
+    i = torch.arange(int(per.sum())) - (torch.cumsum(per, 0) - per)[c]
+    return torch.stack([c, i // nseg[c], i % nseg[c]], 1)
+
+
+# ---- the kernels' Python side ------------------------------------------------
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _raise_on(rc, what):
     if rc != 0:
-        raise RuntimeError(f"chunk kNN kernel launch failed: "
-                           f"{lib.ltm_chunk_knn_error_string(rc).decode()} ({rc})")
+        raise RuntimeError(f"chunk kNN {what} launch failed: "
+                           f"{_lib().ltm_chunk_knn_error_string(rc).decode()} ({rc})")
+
+
+def _target_arrays(bm: BlockMap, target_extra):
+    """(xyz, mask, extra or None) of the block map as the kernels read them:
+    contiguous, checked (any capacity; the scoring stages the 16-byte units
+    that cover a block's slots, wherever they start)."""
+    n_blocks, cap = bm.num_blocks, bm.block_capacity
+    if n_blocks * cap >= 2**31:
+        raise ValueError(f"chunk kNN kernel takes fewer than 2^31 slots, got {n_blocks} x {cap}")
+    if bm.mask.dtype != torch.bool or (target_extra is not None and (
+            target_extra.dtype != torch.bool or target_extra.numel() != n_blocks * cap)):
+        raise ValueError("chunk kNN kernel: the block mask and target_extra are bool, "
+                         "target_extra one entry a slot")
+    return (bm.xyz.contiguous(), bm.mask.contiguous(),
+            None if target_extra is None else target_extra.contiguous())
+
+
+def _prep_cuda(q, qm, targets, sort_cell: float):
+    """(order (N,) int32, bounds): one C call launches ``ck_cell_min`` and
+    ``ck_keys`` (the Morton keys of :func:`_prep_sorted_chunks`), CUB's
+    stable radix sort of the keys (their order) and ``ck_bounds`` (the
+    block and super-block AABBs, a float4 array)."""
+    n, dev = q.shape[0], q.device
+    xyz, mask, extra = targets
+    n_blocks, cap = mask.shape
+    nbytes = _lib().ltm_chunk_knn_prep_bytes(n)
+    if nbytes < 0:
+        raise RuntimeError(f"chunk kNN prep: no scratch size for {n} queries")
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+    order = torch.empty((n,), dtype=torch.int32, device=dev)
+    bounds = torch.empty((2 * n_blocks + 2 * -(-n_blocks // _SUPER), 4), dtype=torch.float32,
+                         device=dev)
+    rc = _lib().ltm_chunk_knn_prep(q.data_ptr(), qm.data_ptr(), n,
+                                   ctypes.c_float(float(_recip(sort_cell))), xyz.data_ptr(),
+                                   mask.data_ptr(), _ptr(extra), n_blocks, cap,
+                                   scratch.data_ptr(), nbytes, order.data_ptr(),
+                                   bounds.data_ptr(), _stream())
+    _raise_on(rc, "prep")
+    return order, bounds
+
+
+def _scan_scratch_bytes(n: int, chunk: int, n_blocks: int, k_blocks: int, seg: int) -> int:
+    """Bytes of the scan's scratch: packed top-2 words (when the merge
+    runs), work items, hit lists and hit counts."""
+    list_cap = min(k_blocks, n_blocks)
+    n_chunks = -(-n // chunk)
+    items = n_chunks * -(-chunk // _SLAB) * -(-list_cap // seg)
+    return 8 * n * (list_cap > seg) + 8 * items + 4 * n_chunks * (list_cap + 1)
+
+
+def _scan_cuda(q, qm, order, targets, bounds, clamp_radius: float, chunk: int, k_blocks: int,
+               seg: int = _SEG):
+    """(out (N, 2), chunk_overflow (C,)): one C call launches ``ck_cull``,
+    ``ck_score`` (work items of ``seg`` listed blocks) and, when a chunk can
+    list more than ``seg`` blocks, ``ck_merge``, with scratch sized from
+    what the host knows (chunks, ``k_blocks``): no host sync.  The scan's
+    counts go to ``chunk_knn_sqdists.counts``."""
+    n, dev = q.shape[0], q.device
+    xyz, mask, extra = targets
+    n_blocks, cap = mask.shape
+    if not 0 < chunk <= _MAX_CHUNK or k_blocks < 1 or seg < 1:
+        raise ValueError(f"chunk kNN kernel takes 0 < chunk <= {_MAX_CHUNK}, k_blocks >= 1 and "
+                         f"seg >= 1, got {chunk}, {k_blocks} and {seg}")
+    if -(-n // chunk) * chunk >= 2**31:
+        raise ValueError("chunk kNN kernel takes fewer than 2^31 padded queries")
+    nbytes = _scan_scratch_bytes(n, chunk, n_blocks, k_blocks, seg)
+    scratch = torch.empty((-(-nbytes // 8),), dtype=torch.int64, device=dev)
+    counts = torch.empty((_COUNTS,), dtype=torch.int64, device=dev)
+    out = torch.empty((n, 2), dtype=torch.float32, device=dev)
+    overflow = torch.empty((-(-n // chunk),), dtype=torch.int32, device=dev)
+    rc = _lib().ltm_chunk_knn_scan(
+        q.data_ptr(), qm.data_ptr(), order.data_ptr(), n, chunk, xyz.data_ptr(),
+        mask.data_ptr(), _ptr(extra), n_blocks, cap, bounds.data_ptr(),
+        ctypes.c_float(clamp_radius), ctypes.c_float(clamp_radius * clamp_radius), k_blocks, seg,
+        scratch.data_ptr(), 8 * scratch.numel(), counts.data_ptr(), out.data_ptr(),
+        overflow.data_ptr(), _stream())
+    _raise_on(rc, "scan")
     chunk_knn_sqdists.launches += 1
-    return overflow, d
-
-
-@functools.lru_cache(maxsize=None)
-def _limits():
-    """(largest chunk, largest block capacity, longest block list) the
-    kernel takes."""
-    i = ctypes.c_int
-    vals = i(), i(), i()
-    _lib().ltm_chunk_knn_limits(*(ctypes.byref(v) for v in vals))
-    return tuple(v.value for v in vals)
+    if min(k_blocks, n_blocks) > seg:
+        chunk_knn_sqdists.merges += 1
+    chunk_knn_sqdists.counts = counts
+    return out, overflow
 
 
 @functools.lru_cache(maxsize=None)
@@ -279,11 +418,24 @@ def _lib() -> ctypes.CDLL:
     from ltm_torch.kernels._build import load_kernel
 
     lib = load_kernel("chunk_knn")
-    p, i = ctypes.c_void_p, ctypes.c_int   # pointers and the stream as c_void_p: no 32-bit cut
-    lib.ltm_chunk_knn_scan.argtypes = [p] * 7 + [i] * 4 + [ctypes.c_float] * 2 + [i, p, p, p]
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float   # pointers as c_void_p: no 32-bit cut
+    ll = ctypes.c_longlong
+    lib.ltm_chunk_knn_prep_bytes.argtypes = [i]
+    lib.ltm_chunk_knn_prep_bytes.restype = ll
+    lib.ltm_chunk_knn_prep.argtypes = [p, p, i, f, p, p, p, i, i, p, ll, p, p, p]
+    lib.ltm_chunk_knn_prep.restype = i
+    lib.ltm_chunk_knn_scan.argtypes = [p, p, p, i, i, p, p, p, i, i, p, f, f, i, i, p, ll,
+                                       p, p, p, p]
     lib.ltm_chunk_knn_scan.restype = i
-    lib.ltm_chunk_knn_limits.argtypes = [ctypes.POINTER(i)] * 3
-    lib.ltm_chunk_knn_limits.restype = None
+    lib.ltm_chunk_knn_config.argtypes = [ctypes.POINTER(i)] * 5
+    lib.ltm_chunk_knn_config.restype = None
     lib.ltm_chunk_knn_error_string.argtypes = [i]
     lib.ltm_chunk_knn_error_string.restype = ctypes.c_char_p
+    vals = [i() for _ in range(5)]
+    lib.ltm_chunk_knn_config(*(ctypes.byref(v) for v in vals))
+    got = tuple(v.value for v in vals)
+    want = (_MAX_CHUNK, _SLAB, _SUPER, _PREP_CTAS, _COUNTS)
+    if got != want:
+        raise RuntimeError(f"csrc/chunk_knn.cu has (max chunk, slab, super, prep CTAs, "
+                           f"counts) = {got}; the wrapper plans for {want}")
     return lib

@@ -19,7 +19,7 @@ import torch
 from ltm.kernels.blocks import build_block_map
 from ltm.kernels.chunk_knn import chunk_knn_sqdists as j_chunk_knn
 from ltm_torch.kernels.blocks import BlockMap
-from ltm_torch.kernels.chunk_knn import chunk_knn_avg_sqdist, chunk_knn_sqdists
+from ltm_torch.kernels.chunk_knn import _SEG, chunk_knn_avg_sqdist, chunk_knn_sqdists
 
 torch.set_num_threads(1)
 
@@ -71,10 +71,26 @@ def _case(name, rng):
         q = rng.uniform(-10, 10, size=(700, 3)).astype(np.float32)
         return q, np.zeros(700, bool), _bm(t, np.ones(2000, bool), 5.0, 512, 64), None, \
             dict(clamp_radius=1.5, chunk=128, k_blocks=64, sort_cell=5.0)
+    if name == "long_list":
+        # dense small blocks, one sort cell: every chunk lists hundreds of
+        # blocks, many work items of the kernel route each
+        t = rng.uniform(-5, 5, size=(12000, 3)).astype(np.float32)
+        q = rng.uniform(-5, 5, size=(300, 3)).astype(np.float32)
+        return q, np.ones(300, bool), _bm(t, np.ones(12000, bool), 2.0, 2048, 16), None, \
+            dict(clamp_radius=2.0, chunk=128, k_blocks=2048, sort_cell=20.0)
+    if name == "odd_capacity":
+        # 100 slots a block, which the card's route takes too
+        t = rng.uniform(-20, 20, size=(4000, 3)).astype(np.float32)
+        bm = _bm(t, rng.uniform(size=4000) > 0.1, 6.0, 256, 100)
+        extra = rng.uniform(size=bm.num_blocks * bm.block_capacity) > 0.3
+        q = rng.uniform(-21, 21, size=(800, 3)).astype(np.float32)
+        return q, rng.uniform(size=800) > 0.1, bm, extra, \
+            dict(clamp_radius=2.0, chunk=128, k_blocks=256, sort_cell=6.0)
     raise KeyError(name)
 
 
-CASES = ["masked", "thresholds", "target_extra", "overflow", "km_offset", "no_valid_query"]
+CASES = ["masked", "thresholds", "target_extra", "overflow", "km_offset", "no_valid_query",
+         "long_list", "odd_capacity"]
 
 
 @pytest.mark.parametrize("name", CASES)
@@ -100,6 +116,9 @@ def test_plain_matches_ltm(rng, name):
         assert (over > 0).sum() == 1 and len(bad_rows) > 0
     else:
         assert over.sum() == 0
+    if name == "long_list":   # every chunk lists many segments' worth of blocks
+        assert np.all(j_chunk_knn(jnp.asarray(q), jnp.asarray(qm), bm, None,
+                                  **dict(kw, k_blocks=1)).chunk_overflow >= 20 * _SEG)
 
 
 def test_avg_is_mean_of_sqdists(rng):
