@@ -6,7 +6,7 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``ltm_torch/csrc`` (nvcc,
-sm_90a), then runs six phases, each of which raises on failure:
+sm_90a), then runs nine phases, each of which raises on failure:
 
   1. device and build: the card, PyTorch/CUDA versions, kernel build time,
      the ``-Xptxas -v`` report of every source, and the 2-NN scan's hot
@@ -49,13 +49,30 @@ sm_90a), then runs six phases, each of which raises on failure:
   6. the CLI: ``python -m ltm_torch.cli.ltremovert`` in a subprocess on
      session directories of 8 keyframes x 120k points a session; its
      artifact tree must hold the expected files with the point counts of
-     ``Removerter.run`` on the same inputs in this process.
+     ``Removerter.run`` on the same inputs in this process;
+  7. LT-SLAM card vs CPU: ``LTSlam.run`` with ``LTSlamConfig()`` on phase
+     8's workload cut to 60 + 20 keyframes, on both devices: the same
+     accepted loop set, central poses within 0.01 m;
+  8. LT-SLAM at full width: ``bench.py:_slam_bench``'s workload (two
+     sessions x 500 keyframes x 8 000 points, ``LTSlamConfig()``), a
+     warm-up and two timed runs (ATE RMSE ≤ 0.10 m), one run that times
+     each call of the path's hot loops (the ICP 1-NN, the Scan Context
+     distance, the polar-bin scatter-max, the tridiagonal sweeps) with a
+     sync on each side, the largest 1-NN call against its bound and
+     ``torch.cdist``, one run with 10 RS loops (ATE ≤ 0.10 m) and one at
+     ``odom_noise=4e-3`` (ATE ≤ 0.25 m);
+  9. ``python -m ltm_torch.cli.ltmapper`` in a subprocess on session
+     directories of 40 keyframes x 8 000 points a session: ``ltslam/``
+     holds the eight trajectory files and ``removert/`` equals
+     ``Removerter.run`` in this process on those poses.
 
 Every timed call whose targets split is also run and timed with the plan
 held at one split, which must give the same bits.
 
-It prints one JSON object per kernel line, then the card's name and power
-limit, and as its last line ``{"ok": true, "device": {...}}``.  Without a
+It prints the ``{"kernels": [...]}`` line, the ``{"slam": {...}}`` line
+(phases 7-9), then the card's name and power limit, and as its last line
+``{"ok": true, "device": {...}}``.  The LT-SLAM path runs no hand kernel:
+its hot loops are PyTorch ops, measured in phase 8.  Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero
 and prints no result.  The port imports neither ``jax`` nor ``ltm``.
 """
@@ -951,6 +968,366 @@ def phase_cli(device="cuda"):
     shutil.rmtree(root, ignore_errors=True)
 
 
+SLAM_WIDTH = dict(seed=11, num_keyframes=500, num_cars=12, num_changed=4,
+                  max_scan_points=8000, scan_range=70.0)   # bench.py:_slam_bench
+SLAM_CLI_KEYFRAMES = 40                                     # phase 9: full scan width, depth cut
+ATE_BOUND = 0.10          # m, bench.py:39 (odom_noise 5e-4, with and without RS loops)
+ATE_NOISY_BOUND = 0.25    # m, bench.py:40 (odom_noise 4e-3)
+
+
+SLAM_CUT = (60, 20)    # phase 7: keyframes kept of the central and the query session
+
+
+def cut_bundle(full, n_central, n_query):
+    """The first keyframes of each session of a ``make_two_sessions`` bundle
+    (scans, poses, ground truth; the edges among the kept nodes)."""
+    import dataclasses
+
+    def cut(syn, n):
+        d = syn.data
+        ef, et, er = d.edges
+        keep = (ef < n) & (et < n)
+        data = dataclasses.replace(d, node_ids=d.node_ids[:n], poses=d.poses[:n],
+                                   scans=d.scans[:n], edges=(ef[keep], et[keep], er[keep]))
+        return dataclasses.replace(syn, data=data, site_poses=syn.site_poses[:n])
+    return dict(full, central=cut(full["central"], n_central), query=cut(full["query"], n_query))
+
+
+def slam_ate(result, bundle) -> float:
+    errs = [np.linalg.norm(result.central_poses[name][:, :3, 3] - syn.site_poses[:, :3, 3], axis=1)
+            for name, syn in (("01", bundle["central"]), ("02", bundle["query"]))]
+    return float(np.sqrt(np.mean(np.concatenate(errs) ** 2)))
+
+
+def loop_set(slam):
+    return sorted((int(a[0]), int(a[1])) for a in slam.anchored)
+
+
+def nudge_after_first_solve(slam, scale: float) -> None:
+    """Move every non-gauge node of every session by N(0, scale) metres right
+    after the pipeline's first solve: how far the result moves measures how
+    far card-vs-CPU rounding can carry it."""
+    solve_once = slam._optimize
+
+    def optimize():
+        solve_once()
+        if not getattr(slam, "_nudged", False):
+            slam._nudged = True
+            rng = np.random.default_rng(1)
+            for sess in slam.sessions:
+                sess.poses_local = sess.poses_local.copy()
+                sess.poses_local[1:, :3, 3] += rng.normal(scale=scale, size=(sess.num_nodes - 1, 3))
+    slam._optimize = optimize
+
+
+def phase_slam_card_vs_cpu():
+    """Phase 7: ``LTSlam.run`` with ``LTSlamConfig()`` on phase 8's workload
+    cut to its first 60 central and 20 query keyframes, on the CPU and on
+    the card: the same accepted loop set, central poses within 0.01 m; and
+    how far a 1e-5 m nudge of the poses after the first solve moves the
+    card's result.  (The 24-keyframe CPU-test fixture, with its thinned ICP
+    submaps, is no yardstick for this: its ICPs creep for 25-54 iterations
+    and land where rounding sends them.)"""
+    from ltm_torch.core.config import LTSlamConfig
+    from ltm_torch.io.synthetic import make_two_sessions
+    from ltm_torch.slam import LTSlam
+
+    b = cut_bundle(make_two_sessions(odom_noise=5e-4, **SLAM_WIDTH), *SLAM_CUT)
+    out = {}
+    for dev, nudge in (("cpu", 0.0), ("cuda", 0.0), ("nudged", 1e-5)):
+        t0 = time.perf_counter()
+        slam = LTSlam(LTSlamConfig(), device="cuda" if dev == "nudged" else dev)
+        if nudge:
+            nudge_after_first_solve(slam, nudge)
+        res = slam.run(b["central"].data, b["query"].data)
+        out[dev] = (slam, res, time.perf_counter() - t0)
+    (s_c, r_c, t_c), (s_g, r_g, t_g) = out["cpu"], out["cuda"]
+    nudged = max(float(np.abs(out["nudged"][1].central_poses[n][:, :3, 3]
+                              - r_g.central_poses[n][:, :3, 3]).max()) for n in r_g.central_poses)
+    if loop_set(s_c) != loop_set(s_g) or not loop_set(s_g):
+        raise AssertionError(f"card vs CPU: loop sets differ {loop_set(s_c)} {loop_set(s_g)}")
+    dmax = max(float(np.abs(r_c.central_poses[n][:, :3, 3] - r_g.central_poses[n][:, :3, 3]).max())
+               for n in r_c.central_poses)
+    if dmax > 0.01:
+        raise AssertionError(f"card vs CPU: central poses differ by {dmax} m")
+    st = {"keyframes": list(SLAM_CUT), "loops": len(loop_set(s_g)), "max_central_pose_diff_m": dmax,
+          "card_nudged_1e-5_m_diff_m": nudged,
+          "ate_rmse_m": [slam_ate(r_c, b), slam_ate(r_g, b)],
+          "icp_iterations_max": [max(s_c.icp_iterations), max(s_g.icp_iterations)],
+          "cpu_s": t_c, "cuda_s": t_g}
+    log(f"[7] {json.dumps(st)}")
+    return st
+
+
+class HotLoops:
+    """Counts (and, with ``timed``, times with a sync on each side) the calls
+    of the LT-SLAM path's XLA-lowered hot loops, by patching the module
+    attributes their callers read."""
+
+    TARGETS = (("icp_1nn", "ltm_torch.register.icp", "nn_sqdist_argmin"),
+               ("sc_distance_matrix", "ltm_torch.retrieval.scancontext", "sc_distance_matrix"),
+               ("polar_bin_scatter_max", "ltm_torch.kernels.polar_bin", "make_descriptors"),
+               ("tridiag_factor", "ltm_torch.graph.solver", "_tridiag_factor"),
+               ("tridiag_apply", "ltm_torch.graph.solver", "_tridiag_apply"))
+
+    def __init__(self, timed=False):
+        import importlib
+
+        self.timed = timed
+        self.calls = {name: 0 for name, _, _ in self.TARGETS}
+        self.seconds = {name: 0.0 for name, _, _ in self.TARGETS}
+        self.bound_s = {name: 0.0 for name, _, _ in self.TARGETS}
+        self.largest_1nn = None
+        self._saved = []
+        for name, mod, attr in self.TARGETS:
+            m = importlib.import_module(mod)
+            self._saved.append((m, attr, getattr(m, attr)))
+            setattr(m, attr, self._wrap(name, getattr(m, attr)))
+
+    def _wrap(self, name, fn):
+        import torch
+
+        def wrapped(*args, **kwargs):
+            self.calls[name] += 1
+            if self.timed:                   # the bound reads the masks' counts: a host sync
+                self.bound_s[name] += hot_loop_bound_s(name, args)
+            if name == "icp_1nn" and (self.largest_1nn is None
+                                      or args[0].shape[0] > self.largest_1nn[0][0].shape[0]):
+                self.largest_1nn = (args, kwargs)
+            if not self.timed:
+                return fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds[name] += time.perf_counter() - t0
+            return out
+        return wrapped
+
+    def restore(self):
+        for m, attr, fn in self._saved:
+            setattr(m, attr, fn)
+
+
+def hot_loop_bound_s(name, args) -> float:
+    """The least time the card could take for one hot-loop call: the larger
+    of its bytes (inputs read once, outputs written once) at the HBM rate
+    and its FP32 operations at the non-tensor peak, from the call's shapes
+    (the 1-NN: 8 flops a valid pair)."""
+    if name == "icp_1nn":
+        q, qm, t, tm = args[:4]
+        ops = 8.0 * float((qm.sum(-1).double() * tm.sum(-1).double()).sum())
+        nbytes = q.numel() * 4 + qm.numel() + t.numel() * 4 + tm.numel() + qm.numel() * 12
+    elif name == "sc_distance_matrix":
+        (Q, R, S), T = args[0].shape, args[1].shape[0]
+        ops = 2.0 * S * Q * T * (R * S + 2 * S)        # scores, column counts, sector keys
+        nbytes = (Q + T) * R * S * 4 + Q * T * 8
+    elif name == "polar_bin_scatter_max":
+        xyz, mask = args[0], args[1]
+        ops = 0.0
+        nbytes = xyz.numel() * 4 + mask.numel() + xyz.shape[0] * 20 * 60 * 4
+    elif name == "tridiag_factor":
+        V = args[0].shape[0]
+        ops = V * (4 * 216 + 2 * 216)                  # two 6x6 products and an inverse a block
+        nbytes = 3 * V * 36 * 4
+    else:                                              # tridiag_apply (Cinv, Lc, chains, r)
+        r = args[3]
+        lanes = r.numel() // (r.shape[-2] * 6)
+        ops = lanes * r.shape[-2] * 4 * 72.0           # four 6x6 mat-vecs a block
+        nbytes = 2 * args[0].numel() * 4 + 2 * r.numel() * 4
+    return max(ops / H100_FP32_FLOPS, nbytes / H100_BYTES_PER_S)
+
+
+def nn_bound_and_library(args, kwargs):
+    """The largest 1-NN call of the farm: its time by CUDA events, its bound
+    (8 FP32 flops a valid pair at the card's peak, or its bytes) and the
+    time of ``torch.cdist`` + ``min`` on the same inputs (in 4-lane chunks)."""
+    import torch
+
+    from ltm_torch.kernels.knn import nn_sqdist_argmin
+
+    q, qm, t, tm = args
+    ms = cuda_ms(lambda: nn_sqdist_argmin(*args, **kwargs), reps=3)
+    pairs = float((qm.sum(-1).double() * tm.sum(-1).double()).sum())
+    flops_ms = 8 * pairs / H100_FP32_FLOPS * 1e3
+    nbytes = q.numel() * 4 + qm.numel() + t.numel() * 4 + tm.numel() + qm.numel() * 12
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+
+    def library():
+        for c in range(0, q.shape[0], 4):
+            torch.cdist(q[c:c + 4], t[c:c + 4]).min(-1)
+    lib_ms = cuda_ms(library, reps=3)
+    return {"lanes": q.shape[0], "queries": q.shape[1], "targets": t.shape[1],
+            "valid_pairs": pairs, "ms": ms, "bound_ms": max(flops_ms, bytes_ms),
+            "bound_by": "operations" if flops_ms >= bytes_ms else "bytes",
+            "library_ms": lib_ms, "library": "torch.cdist + min, 4 lanes a call"}
+
+
+def phase_slam_full_width():
+    """Phase 8: ``bench.py:_slam_bench``'s workload (500 keyframes a session,
+    ~1 000 pose-graph nodes, ``LTSlamConfig()``): a warm-up, two timed runs
+    (ATE ≤ 0.10 m), an instrumented run that times each hot-loop call with a
+    sync on each side, one run with 10 RS loops (ATE ≤ 0.10 m) and one at
+    ``odom_noise=4e-3`` (ATE ≤ 0.25 m)."""
+    import torch
+
+    from ltm_torch.core.config import LTSlamConfig
+    from ltm_torch.graph import solver
+    from ltm_torch.io.synthetic import make_two_sessions
+    from ltm_torch.slam import LTSlam
+    from ltm_torch.utils import host_reads, reset_host_reads, reset_stage_times, stage_times
+
+    os.environ["LTM_SYNC_STAGES"] = "1"
+    t0 = time.perf_counter()
+    bundle = make_two_sessions(odom_noise=5e-4, **SLAM_WIDTH)
+    n_kf = 2 * SLAM_WIDTH["num_keyframes"]
+    log(f"[8] workload made in {time.perf_counter() - t0:.1f} s")
+
+    def one_run(cfg, b, hot=None):
+        reset_stage_times()
+        reset_host_reads()
+        torch.cuda.synchronize()
+        slam = LTSlam(cfg, device="cuda")
+        t0 = time.perf_counter()
+        res = slam.run(b["central"].data, b["query"].data)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        it = np.asarray(slam.icp_iterations)
+        return res, {"wall_s": wall, "keyframes_per_s": n_kf / wall, "ate_rmse_m": slam_ate(res, b),
+                     "sc_loops": res.num_sc_loops, "rs_loops": res.num_rs_loops,
+                     "icp_pairs": len(it),
+                     "icp_iterations_min_p50_p90_max": [int(it.min()), float(np.median(it)),
+                                                        float(np.percentile(it, 90)), int(it.max())]
+                     if len(it) else None,
+                     "host_reads": host_reads(), "stages_s": stage_times(),
+                     "hot_loop_calls": dict(hot.calls) if hot else None}
+
+    runs = []
+    for i in range(3):                          # run 0 warms up
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        hot = HotLoops()
+        try:
+            res, st = one_run(LTSlamConfig(), bundle, hot)
+        finally:
+            hot.restore()
+        st["run"] = i
+        runs.append(st)
+        log(f"[8] {json.dumps(st)}")
+        if st["ate_rmse_m"] > ATE_BOUND:
+            raise AssertionError(f"full-width ATE {st['ate_rmse_m']} m > {ATE_BOUND} m")
+        if res.num_sc_loops <= 0:
+            raise AssertionError("full width: no SC loop accepted")
+    peak = torch.cuda.max_memory_allocated()
+
+    hot = HotLoops(timed=True)
+    solver.CUDA_GRAPHS = False            # each sweep eagerly, so a sync can bracket it
+    try:
+        _, inst = one_run(LTSlamConfig(), bundle, hot)
+    finally:
+        hot.restore()
+        solver.CUDA_GRAPHS = True
+    optimize_s = sum(v for k, v in inst["stages_s"].items() if k.startswith("ltslam.optimize."))
+    tri_s = hot.seconds["tridiag_factor"] + hot.seconds["tridiag_apply"]
+    loops = {name: {"calls": hot.calls[name], "s": hot.seconds[name],
+                    "ms_per_call": hot.seconds[name] / hot.calls[name] * 1e3 if hot.calls[name] else None,
+                    "bound_ms_per_call": hot.bound_s[name] / hot.calls[name] * 1e3 if hot.calls[name] else None}
+             for name in hot.calls}
+    nn = nn_bound_and_library(*hot.largest_1nn)
+    log(f"[8] instrumented run (a sync around each hot-loop call, PCG without CUDA graphs): "
+        f"wall {inst['wall_s']:.3f} s, optimize {optimize_s:.3f} s, "
+        f"{json.dumps(loops)}; tridiagonal share of ltslam.optimize.*: {tri_s / optimize_s:.4f}")
+    log(f"[8] largest 1-NN call: {json.dumps(nn)}")
+
+    cfg = LTSlamConfig()
+    cfg.num_rs_loops_upper_bound = 10
+    res, rs = one_run(cfg, bundle)
+    log(f"[8] RS loops (num_rs_loops_upper_bound=10): {json.dumps(rs)}")
+    if rs["ate_rmse_m"] > ATE_BOUND or res.num_rs_loops <= 0:
+        raise AssertionError(f"RS run: ATE {rs['ate_rmse_m']} m, {res.num_rs_loops} RS loops")
+    noisy_b = make_two_sessions(odom_noise=4e-3, **SLAM_WIDTH)
+    _, noisy = one_run(LTSlamConfig(), noisy_b)
+    log(f"[8] odom_noise=4e-3: {json.dumps(noisy)}")
+    if noisy["ate_rmse_m"] > ATE_NOISY_BOUND:
+        raise AssertionError(f"noisy run: ATE {noisy['ate_rmse_m']} m > {ATE_NOISY_BOUND} m")
+
+    timed = runs[1:]
+    summary = {
+        "keyframes": n_kf,
+        "median_keyframes_per_s": statistics.median(r["keyframes_per_s"] for r in timed),
+        "median_wall_s": statistics.median(r["wall_s"] for r in timed),
+        "ate_rmse_m": [r["ate_rmse_m"] for r in timed], "sc_loops": timed[-1]["sc_loops"],
+        "rs_run": {k: rs[k] for k in ("ate_rmse_m", "rs_loops", "wall_s", "stages_s")},
+        "noisy_run": {k: noisy[k] for k in ("ate_rmse_m", "sc_loops", "wall_s")},
+        "stages_s": timed[-1]["stages_s"],
+        "icp_iterations_min_p50_p90_max": timed[-1]["icp_iterations_min_p50_p90_max"],
+        "host_reads": timed[-1]["host_reads"],
+        "hot_loop_calls_per_run": timed[-1]["hot_loop_calls"],
+        "hot_loops_instrumented": loops,
+        "instrumented_wall_s": inst["wall_s"],
+        "instrumented_optimize_s": optimize_s,
+        "tridiag_share_of_optimize_eager": tri_s / optimize_s,
+        "largest_1nn_call": nn,
+        "max_memory_allocated_bytes": peak,
+    }
+    log(f"[8] {json.dumps(summary)}")
+    return summary
+
+
+def phase_slam_cli(device="cuda"):
+    """Phase 9: ``python -m ltm_torch.cli.ltmapper`` in a subprocess on session
+    directories (``write_session_dir``, 40 keyframes x 8 000 points a
+    session); its ``removert/`` tree must equal ``Removerter.run`` in this
+    process on the ``ltslam/`` poses it wrote: the same files, the same
+    point count in each."""
+    from ltm_torch.core.config import RemovertConfig
+    from ltm_torch.io.pcd import read_pcd
+    from ltm_torch.io.sessions import write_session_dir
+    from ltm_torch.io.synthetic import make_two_sessions
+    from ltm_torch.removert import Removerter, RemovertInput
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(repo, "build", "chip_smoke_ltmapper")
+    shutil.rmtree(root, ignore_errors=True)
+    b = make_two_sessions(odom_noise=5e-4, **dict(SLAM_WIDTH, num_keyframes=SLAM_CLI_KEYFRAMES))
+    for name in ("central", "query"):
+        write_session_dir(os.path.join(root, "data", b[name].data.name), b[name].data)
+    out_dir = os.path.join(root, "out")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "ltm_torch.cli.ltmapper", "--sessions-dir",
+                          os.path.join(root, "data"), "--out", out_dir, "--device", device],
+                         capture_output=True, text=True, timeout=600, cwd=repo)
+    cli_s = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"ltmapper exited {out.returncode}:\n{out.stderr[-4000:]}")
+    slam_files = sorted(os.listdir(os.path.join(out_dir, "ltslam")))
+    want = sorted(f"{n}_{k}_{p}_intersession_loops.txt" for n in ("01", "02")
+                  for k in ("local", "central") for p in ("bfr", "aft"))
+    if slam_files != want:
+        raise AssertionError(f"ltslam/ holds {slam_files}")
+    lib_dir = os.path.join(root, "lib_removert")
+    Removerter(RemovertConfig(), device=device).run(
+        *(RemovertInput.from_dirs(os.path.join(root, "data", n, "Scans"),
+                                  os.path.join(out_dir, "ltslam", f"{n}_central_aft_intersession_loops.txt"))
+          for n in ("01", "02")), save_directory=lib_dir)
+
+    def tree(d):
+        return {os.path.relpath(os.path.join(a, n), d): len(read_pcd(os.path.join(a, n)))
+                for a, _, names in os.walk(d) for n in names if n.endswith(".pcd")}
+
+    cli, lib = tree(os.path.join(out_dir, "removert")), tree(lib_dir)
+    if not cli or cli != lib:
+        raise AssertionError(f"ltmapper's removert/ and the in-process tree differ: "
+                             f"{sorted(set(cli) ^ set(lib))} "
+                             f"{[k for k in cli if k in lib and cli[k] != lib[k]]}")
+    st = {"keyframes_a_session": SLAM_CLI_KEYFRAMES, "removert_files": len(cli),
+          "points": sum(cli.values()), "updated_map_points": cli.get("updated_map.pcd"),
+          "cli_s": cli_s}
+    log(f"[9] {json.dumps(st)}")
+    shutil.rmtree(root, ignore_errors=True)
+    return st
+
+
 def main() -> int:
     import torch
 
@@ -979,6 +1356,8 @@ def main() -> int:
     calls, last_run, brute_masks = phase_full_width(brute)
     k4_calls, k4_run = phase_default_config(cfg, brute_masks)
     phase_cli()
+    slam = {"card_vs_cpu": phase_slam_card_vs_cpu(), "full_width": phase_slam_full_width(),
+            "ltmapper_cli": phase_slam_cli()}
 
     nd = calls[0]
     k4_nd = next(st for st in k4_calls if st["case"] == "full_width_nd")
@@ -1044,6 +1423,7 @@ def main() -> int:
     }]
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"slam": slam}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

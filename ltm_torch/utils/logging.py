@@ -17,11 +17,13 @@ from typing import Dict, Optional
 import torch
 
 __all__ = ["get_logger", "stage_timer", "stage_times", "reset_stage_times",
-           "count_slots", "slot_counts", "reset_slot_counts", "current_stage"]
+           "count_slots", "slot_counts", "reset_slot_counts", "current_stage",
+           "count_host_read", "host_reads", "reset_host_reads"]
 
 _STAGE_TIMES: Dict[str, float] = {}
 _STAGE_STACK: list = []
 _SLOT_COUNTS: Dict[str, int] = {}  # map-slots touched per stage
+_HOST_READS: Dict[str, int] = {}   # device-to-host reads that steer a loop, by kind
 
 
 def current_stage() -> str:
@@ -41,6 +43,21 @@ def slot_counts() -> Dict[str, int]:
 
 def reset_slot_counts() -> None:
     _SLOT_COUNTS.clear()
+
+
+def count_host_read(kind: str) -> None:
+    """Count one device read that a host loop waits on (a PCG stop test, an
+    ICP round's ``done``, an LM accept test): each one drains the card's
+    queue before the host can enqueue more."""
+    _HOST_READS[kind] = _HOST_READS.get(kind, 0) + 1
+
+
+def host_reads() -> Dict[str, int]:
+    return dict(_HOST_READS)
+
+
+def reset_host_reads() -> None:
+    _HOST_READS.clear()
 
 
 def get_logger(name: str = "ltm_torch") -> logging.Logger:

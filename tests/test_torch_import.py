@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from ltm_torch.removert import Removerter
+from ltm_torch.slam import LTSlam
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -21,6 +22,8 @@ def test_import_leaves_jax_and_ltm_out():
             "import ltm_torch.kernels.chunk_knn, ltm_torch.cli.ltremovert\n"
             "import ltm_torch.io.pcd, ltm_torch.io.poses, ltm_torch.io.sessions\n"
             "import ltm_torch.utils.viz, ltm_torch.utils.stagecache\n"
+            "import ltm_torch.slam, ltm_torch.slam.convert, ltm_torch.cli.ltslam\n"
+            "import ltm_torch.cli.ltmapper, ltm_torch.io.synthetic, ltm_torch.io.g2o\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ltm'))\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
@@ -55,3 +58,12 @@ def test_default_device_is_cuda():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Removerter()
     assert Removerter(device="cpu").device.type == "cpu"
+
+
+def test_ltslam_default_device_is_cuda():
+    if torch.cuda.is_available():
+        assert LTSlam().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            LTSlam()
+    assert LTSlam(device="cpu").device.type == "cpu"

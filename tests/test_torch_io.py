@@ -130,3 +130,82 @@ def test_from_dirs_matches_ltm(tmp_path, rng, io_path):
     j_poses.write_kitti_poses(str(tmp_path / "short.txt"), T[:3])
     with pytest.raises(ValueError, match="5 scans vs 3 poses"):
         RemovertInput.from_dirs(str(scans), str(tmp_path / "short.txt"))
+
+
+def _same_session(a, b):
+    assert a.name == b.name
+    np.testing.assert_array_equal(a.node_ids, b.node_ids)
+    np.testing.assert_array_equal(a.poses, b.poses)
+    for x, y in zip(a.edges, b.edges):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+    assert len(a.scans) == len(b.scans)
+    for x, y in zip(a.scans, b.scans):
+        np.testing.assert_array_equal(x, y)
+    if a.descriptors is None or b.descriptors is None:
+        assert a.descriptors is None and b.descriptors is None
+    else:
+        np.testing.assert_array_equal(a.descriptors, b.descriptors)
+
+
+@pytest.mark.parametrize("writer", ["ltm", "port"])
+def test_session_dirs_round_trip_with_ltm(tmp_path, writer):
+    """A session directory (g2o, SCDs, Scans) written by either package loads
+    identically in both, with and without node truncation."""
+    from ltm.io import sessions as j_sessions
+    from ltm.io.synthetic import make_two_sessions as j_make
+    from ltm_torch.io import sessions as t_sessions
+    from ltm_torch.slam.convert import session_from_data
+
+    data = j_make(num_keyframes=10, num_cars=4, num_changed=2, max_scan_points=400, seed=2)["query"].data
+    data.descriptors = np.random.default_rng(0).uniform(0, 5, (10, 20, 60)).astype(np.float32)
+    d = str(tmp_path / "02")
+    if writer == "ltm":
+        j_sessions.write_session_dir(d, data)
+    else:
+        t_sessions.write_session_dir(d, session_from_data(data))
+    for max_nodes in (None, 6):
+        ref = j_sessions.load_session_dir(d, max_nodes=max_nodes)
+        got = t_sessions.load_session_dir(d, max_nodes=max_nodes)
+        _same_session(ref, got)
+    assert got.num_nodes == 6 and len(got.edges[0]) > 0
+
+
+def test_g2o_round_trips_with_ltm(tmp_path, rng):
+    from ltm.io import g2o as j_g2o
+    from ltm_torch.io import g2o as t_g2o
+    from ltm_torch.io import scd as t_scd
+    from ltm.io import scd as j_scd
+
+    g = t_g2o.G2oGraph(node_ids=[0, 1, 2], node_poses=[np.eye(4)] * 3,
+                       edge_from=[0, 1], edge_to=[1, 2], edge_rel=[np.eye(4)] * 2)
+    q = rng.normal(size=4)
+    q /= np.linalg.norm(q)
+    g.node_poses[1] = t_g2o._pose_from([1.0, -2.0, 0.5], q)
+    t_g2o.write_g2o(str(tmp_path / "a.g2o"), g)
+    ref = j_g2o.read_g2o(str(tmp_path / "a.g2o"))
+    got = t_g2o.read_g2o(str(tmp_path / "a.g2o"))
+    np.testing.assert_array_equal(got.poses_array(), ref.poses_array())
+    np.testing.assert_allclose(got.poses_array()[1], g.node_poses[1], atol=1e-12)
+    for x, y in zip(got.edges_arrays(), ref.edges_arrays()):
+        np.testing.assert_array_equal(x, y)
+    desc = rng.uniform(0, 9, (20, 60))
+    t_scd.write_scd(str(tmp_path / "a.scd"), desc)
+    np.testing.assert_array_equal(t_scd.read_scd(str(tmp_path / "a.scd")),
+                                  j_scd.read_scd(str(tmp_path / "a.scd")))
+
+
+@pytest.mark.parametrize("kw", [dict(seed=11, num_keyframes=6, max_scan_points=800, scan_range=70.0,
+                                     odom_noise=5e-4),
+                                dict(seed=3, num_keyframes=5, num_cars=10, max_scan_points=500)])
+def test_synthetic_sessions_match_ltm(kw):
+    """The port's ParkingLot generator gives ltm's sessions for a seed."""
+    from ltm.io.synthetic import make_two_sessions as j_make
+    from ltm_torch.io.synthetic import make_two_sessions as t_make
+
+    ref, got = j_make(**kw), t_make(**kw)
+    for key in ("central", "query"):
+        _same_session(ref[key].data, got[key].data)
+        np.testing.assert_array_equal(ref[key].site_poses, got[key].site_poses)
+        for x, y in zip(ref[key].scan_labels, got[key].scan_labels):
+            np.testing.assert_array_equal(x, y)
+    np.testing.assert_array_equal(ref["anchor_query"], got["anchor_query"])

@@ -45,3 +45,24 @@ def test_voxel_unique_mask_bit_equal(rng, offset):
     kj = jv.voxel_unique_mask(jnp.asarray(xyz), jnp.asarray(mask), 0.1)
     kt = tv.voxel_unique_mask(torch.from_numpy(xyz), torch.from_numpy(mask), 0.1)
     np.testing.assert_array_equal(np.asarray(kj), kt.numpy())
+
+
+@pytest.mark.parametrize("cap", [256, 8192])
+def test_representative_downsamples_bit_equal(rng, cap):
+    """Both representative downsamples, under capacity and with the uniform
+    overflow merge (256 < occupied voxels), bit-equal to ltm's; the capped
+    one batched over clouds as ltm's vmap maps it."""
+    import jax
+
+    xyz, mask = _cloud(rng, 3 * 3000, 1000.0)
+    xyz, mask = xyz.reshape(3, 3000, 3), mask.reshape(3, 3000)
+    ref = jax.vmap(lambda a, b: jv.voxel_downsample_representative_capped(a, b, 0.3, cap))(xyz, mask)
+    got = tv.voxel_downsample_representative_capped(torch.from_numpy(xyz), torch.from_numpy(mask),
+                                                    0.3, cap)
+    for r, g in zip(ref, got):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    ref = jv.voxel_downsample_representative(jnp.asarray(xyz[0]), jnp.asarray(mask[0]), 0.3, cap)
+    got = tv.voxel_downsample_representative(torch.from_numpy(xyz[0]), torch.from_numpy(mask[0]),
+                                             0.3, cap)
+    for r, g in zip(ref, got):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
