@@ -6,7 +6,7 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``ltm_torch/csrc`` (nvcc,
-sm_90a), then runs twelve phases, each of which raises on failure:
+sm_90a), then runs thirteen phases, each of which raises on failure:
 
   1. device and build: the card, PyTorch/CUDA versions, kernel build time,
      the ``-Xptxas -v`` report of every source, and the 2-NN scan's hot
@@ -87,14 +87,25 @@ sm_90a), then runs twelve phases, each of which raises on failure:
      bound;
  12. ``bench.py:62-119``'s headline workload: the 5 M-point visibility sweep
      (``block_sweep_discrepancy``, 32 keyframes x 65 536 points), its
-     keyframes/s and flagged count.
+     keyframes/s and flagged count;
+ 13. LT-removert on a mesh of 4 slots of the card (``ltm_torch.dist``):
+     ``Removerter.run`` on phase 5's workload with the mesh assigned to
+     ``rm.mesh``, its 14 sets equal to phase 4's with the chunked kNN and
+     without it, its wall and stage walls beside phase 5's; every sharded
+     function at those shapes bit-equal to its one-device function, and
+     each K4 call of the run scanned shard by shard (one scan a non-empty
+     shard, the ranges covering every chunk once, counts summed, rows 0
+     ulps from the plain version); the whole-map path on phase 3's
+     workload, mesh against one device and card against CPU; the run once
+     more through a one-process NCCL group (``initialize_multihost``); and
+     phase 10's cut chain on 2 slots, its sets the one-device chain's.
 
 Every timed call whose targets split is also run and timed with the plan
 held at one split, which must give the same bits.
 
 It prints the ``{"kernels": [...]}`` line, the ``{"slam": {...}}`` line
-(phases 7-9), the ``{"lifelong": ..., "optin": ..., "headline": ...}``
-line (phases 10-12), then the card's name and power limit, and as its last line
+(phases 7-9), the ``{"lifelong": ..., "optin": ..., "headline": ..., "mesh": ...}``
+line (phases 10-13), then the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.  The LT-SLAM path runs no hand kernel:
 its hot loops are PyTorch ops, measured in phase 8.  Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero
@@ -104,6 +115,7 @@ and prints no result.  The port imports neither ``jax`` nor ``ltm``.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import faulthandler
 import json
 import os
@@ -831,14 +843,17 @@ def phase_full_width(cfg):
     return stats, timed[-1], {name: m.cpu().numpy() for name, m in result.masks.items()}
 
 
-def chunk_recorder(cfg, calls, prefix):
+def chunk_recorder(cfg, calls, prefix, run=None):
     """A stand-in for the pipeline's ``chunk_knn_sqdists`` that runs the
-    kernel and appends the call's (name, args, kwargs) to ``calls``.  The
-    name is ``prefix`` and the call's role, read from the stage it runs in
-    (ND, PD, the weak->strong promotion, the high-dynamic extraction), or
-    an escalation of the call before it."""
+    kernel (or ``run``, taking the same arguments) and appends the call's
+    (name, args, kwargs) to ``calls``.  The name is ``prefix`` and the
+    call's role, read from the stage it runs in (ND, PD, the weak->strong
+    promotion, the high-dynamic extraction), or an escalation of the call
+    before it."""
     from ltm_torch.kernels.chunk_knn import chunk_knn_sqdists
     from ltm_torch.utils import current_stage
+
+    run = chunk_knn_sqdists if run is None else run
 
     def recording(*args, **kwargs):
         stage = current_stage()
@@ -850,7 +865,7 @@ def chunk_recorder(cfg, calls, prefix):
             name = prefix + {"removert.strong_weak.propagate": "_promotion",
                              "removert.save": "_high_dyn"}[stage]
         calls.append((name, args, kwargs))
-        return chunk_knn_sqdists(*args, **kwargs)
+        return run(*args, **kwargs)
 
     return recording
 
@@ -2029,6 +2044,420 @@ def phase_headline():
     return st
 
 
+MESH_SLOTS = 4      # phase 13: slots of the one card in a mesh
+
+
+def counters():
+    """The kernels' launch counters (K4 scans and merges, K1 scans and
+    merges), to restore after comparison launches."""
+    from ltm_torch.kernels.chunk_knn import chunk_knn_sqdists
+    from ltm_torch.kernels.knn2 import knn2_sqdists
+
+    return (chunk_knn_sqdists.launches, chunk_knn_sqdists.merges, knn2_sqdists.launches,
+            knn2_sqdists.merges)
+
+
+def set_counters(values):
+    from ltm_torch.kernels.chunk_knn import chunk_knn_sqdists
+    from ltm_torch.kernels.knn2 import knn2_sqdists
+
+    (chunk_knn_sqdists.launches, chunk_knn_sqdists.merges, knn2_sqdists.launches,
+     knn2_sqdists.merges) = values
+
+
+def masks_equal(tag, masks, want):
+    """The 14 named sets of a run equal ``want`` ({name: host array}) bit
+    for bit."""
+    from ltm_torch.removert.pipeline import MASK_NAMES
+
+    diff = [n for n in MASK_NAMES if not np.array_equal(masks[n].cpu().numpy(), want[n])]
+    if diff:
+        raise AssertionError(f"{tag}: sets {diff} differ")
+
+
+def counted_run(rm, inputs):
+    """One ``rm.run`` (a main path) with the kernels' launch counts set to 0
+    just before it and read just after: (result, stats with the wall and
+    the synced stage walls)."""
+    import torch
+
+    from ltm_torch.utils import reset_stage_times, stage_times
+
+    reset_stage_times()
+    torch.cuda.synchronize()
+    set_counters((0, 0, 0, 0))
+    t0 = time.perf_counter()
+    res = rm.run(*inputs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k4, k4m, k1, k1m = counters()
+    return res, {"wall_s": wall, "k4_launches": k4, "k4_merge_launches": k4m,
+                 "k1_launches": k1, "k1_merge_launches": k1m, "stages_s": stage_times()}
+
+
+def host_bits(out):
+    """The tensors of a result as host arrays, float32 as their bits (NaN
+    rows compare)."""
+    import torch
+
+    outs = list(out) if isinstance(out, tuple) else [out]
+    return [(o.view(torch.int32) if o.dtype == torch.float32 else o).cpu().numpy() for o in outs]
+
+
+def compare_sharded(name, mesh, sharded, one_device, args, kwargs):
+    """A sharded function on ``mesh`` against the one-device function on the
+    same inputs on the card: every output the same bits.  Returns the
+    shapes, both walls (CUDA events, one call each) and K1's scans in the
+    sharded call."""
+    import torch
+
+    held = []
+    one_ms = cuda_ms(lambda: held.append(one_device(*args, **kwargs)), reps=1)
+    before = counters()
+    sharded_ms = cuda_ms(lambda: held.append(sharded(mesh, *args, **kwargs)), reps=1)
+    torch.cuda.synchronize()
+    k1 = counters()[2] - before[2]
+    want, got = host_bits(held[0]), host_bits(held[1])
+    if len(want) != len(got) or any(w.shape != g.shape or w.dtype != g.dtype or
+                                    not np.array_equal(w, g) for w, g in zip(want, got)):
+        raise AssertionError(f"mesh {name}: the sharded result differs from the one-device one")
+    if all(w.dtype == bool and not w.any() for w in want):
+        raise AssertionError(f"mesh {name}: empty result")
+    return {"function": name, "shapes": [list(w.shape) for w in want], "one_device_ms": one_ms,
+            "sharded_ms": sharded_ms, "k1_launches": k1}
+
+
+def compare_chunk_sharded(name, mesh, args, kwargs):
+    """K4 on the mesh at a main-path call's inputs: the sharded call's rows,
+    overflow and order the one-device call's bits; one scan launch a
+    non-empty shard, the shards' chunk ranges covering every chunk once;
+    the summed counts (work items, block tests, chunks culled; the most
+    tests in a chunk the largest) the one-device scan's; and each shard's
+    rows and overflow held to ``chunk_knn_sqdists_plain`` at 0 ulps."""
+    import torch
+
+    from ltm_torch.dist.removert import chunk_knn_sqdists_sharded
+    from ltm_torch.kernels import chunk_knn as ck
+
+    one = ck.chunk_knn_sqdists(*args, **kwargs)
+    torch.cuda.synchronize()
+    one_counts = kernel_counts()
+    shards, scan_range = [], ck.chunk_knn_scan_range
+
+    def recording(prep, c0, c1, *a, **k):
+        ov, rows = scan_range(prep, c0, c1, *a, **k)
+        shards.append((c0, c1, ov, rows))
+        return ov, rows
+
+    before = counters()
+    ck.chunk_knn_scan_range = recording
+    try:
+        got = chunk_knn_sqdists_sharded(mesh, *args, **kwargs)
+        torch.cuda.synchronize()
+    finally:
+        ck.chunk_knn_scan_range = scan_range
+    scans = counters()[0] - before[0]
+    if any(not np.array_equal(g, w) for g, w in zip(host_bits(tuple(got)), host_bits(tuple(one)))):
+        raise AssertionError(f"mesh {name}: sharded K4 differs from the one-device call")
+    n_chunks = one.chunk_overflow.shape[0]
+    ranges = sorted((c0, c1) for c0, c1, _, _ in shards if c1 > c0)
+    if [c0 for c0, _ in ranges] != [0] + [c1 for _, c1 in ranges[:-1]] or ranges[-1][1] != n_chunks:
+        raise AssertionError(f"mesh {name}: shard ranges {ranges} do not cover {n_chunks} chunks")
+    if scans != len(ranges):
+        raise AssertionError(f"mesh {name}: {scans} scans for {len(ranges)} non-empty shards")
+    if kernel_counts() != one_counts:
+        raise AssertionError(f"mesh {name}: summed counts {kernel_counts()}, one scan's "
+                             f"{one_counts}")
+    plain = ck.chunk_knn_sqdists_plain(*args, **kwargs)
+    sorted_rows = plain.sqdists[plain.order.long()].cpu().numpy()
+    over = plain.chunk_overflow.cpu().numpy()
+    chunk, n = kwargs["chunk"], args[0].shape[0]
+    ulps = 0
+    for c0, c1, ov, rows in shards:
+        if c1 == c0:
+            continue
+        m = min(c1 * chunk, n) - c0 * chunk
+        ulps = max(ulps, ulps_apart(rows[:m].cpu().numpy(), sorted_rows[c0 * chunk:c0 * chunk + m]))
+        if not np.array_equal(ov.cpu().numpy(), over[c0:c1]):
+            raise AssertionError(f"mesh {name}: shard [{c0}, {c1}) overflow differs from plain")
+    if ulps:
+        raise AssertionError(f"mesh {name}: a shard's rows are {ulps} ulps from the plain version")
+    return {"case": name, "chunks": n_chunks, "shard_ranges": ranges, "scans": scans,
+            "plain_ulps": ulps, "overflowed_chunks": int((over > 0).sum()), **one_counts}
+
+
+def mesh_sharded_functions(mesh, rm, res, k4_calls):
+    """Phase 13a: every sharded function of the slice on ``mesh`` at phase
+    5's shapes (the sessions of the mesh run ``res``, the budgets ``rm``
+    computed), each against its one-device function on the card; then
+    each K4 call of the mesh run (``compare_chunk_sharded``).  Comparison
+    launches do not count: the counters are restored."""
+    from ltm_torch.dist import removert as dr
+    from ltm_torch.dist import sharding as ds
+    from ltm_torch.kernels import blocks as kb_mod
+    from ltm_torch.kernels import knn
+    from ltm_torch.kernels import projection as pj
+
+    cfg = rm.cfg
+    fov = (cfg.vfov, cfg.hfov)
+    shape_r = pj.rimg_shape(fov, cfg.remove_resolution_list[0])
+    shape_f = pj.rimg_shape(fov, cfg.nd_pd_filter_resolution)
+    proj = pj.rimg_shape(fov, cfg.reprojection_alpha)
+    c, q = res.central, res.query
+    K = c.num_keyframes
+    pinv, poses = c.poses_inv[:K], c.poses[:K]
+    static = c.masks["static"]
+    kb_f, mr_f = rm._kb(c.bm, rm._fwd_bound(c))
+    kb_v, mr_v = rm._kb(c.bm, rm._vis_bound(c))
+    kb_t, mr_t = rm._kb(q.bm, rm._vis_bound(c))
+    scale = rm._pack_scale(c)
+    imgs = pj.fused_visibility_images(c.map_xyz, static, pinv, fov, shape_f, proj, scale)[1]
+    scans = (c.scans_xyz[:K], c.scans_mask[:K])
+    bm_f = c.bm._replace(mask=c.map_mask.reshape(c.bm.mask.shape))
+    cases = [
+        ("block_sweep_discrepancy", dr.block_sweep_discrepancy_sharded,
+         kb_mod.block_sweep_discrepancy, (bm_f, *scans, pinv, poses, fov, shape_r),
+         dict(k_blocks=kb_f, max_range=mr_f, diff_threshold=cfg.diff_threshold)),
+        ("block_sweep_visibility", dr.block_sweep_visibility_sharded,
+         kb_mod.block_sweep_visibility, (c.bm, static, pinv, poses, fov, proj),
+         dict(k_blocks=kb_v, max_range=mr_v)),
+        ("block_projected_scan_images", dr.block_projected_scan_images_sharded,
+         kb_mod.block_projected_scan_images, (c.bm, static, pinv, poses, fov, shape_f, proj),
+         dict(k_blocks=kb_v, max_range=mr_v)),
+        ("block_fused_visibility_images", dr.block_fused_visibility_images_sharded,
+         kb_mod.block_fused_visibility_images, (c.bm, static, pinv, poses, fov, shape_f, proj),
+         dict(k_blocks=kb_v, max_range=mr_v, scale=scale)),
+        ("block_sweep_discrepancy_vs_images", dr.block_sweep_discrepancy_vs_images_sharded,
+         kb_mod.block_sweep_discrepancy_vs_images,
+         (q.bm, q.masks["static"], imgs, pinv, poses, fov, shape_f),
+         dict(k_blocks=kb_t, max_range=mr_t, diff_threshold=cfg.diff_threshold)),
+        ("sweep_visibility", dr.sweep_visibility_sharded, pj.sweep_visibility,
+         (c.map_xyz, static, pinv, fov, proj), {}),
+        ("projected_scan_images", dr.projected_scan_images_sharded, pj.projected_scan_images,
+         (c.map_xyz, static, pinv, fov, shape_f, proj), {}),
+        ("fused_visibility_images", dr.fused_visibility_images_sharded,
+         pj.fused_visibility_images, (c.map_xyz, static, pinv, fov, shape_f, proj),
+         dict(scale=scale)),
+        ("sweep_discrepancy_vs_images", dr.sweep_discrepancy_vs_images_sharded,
+         pj.sweep_discrepancy_vs_images, (q.map_xyz, q.masks["static"], imgs, pinv, fov, shape_f),
+         dict(diff_threshold=cfg.diff_threshold, reverse=True)),
+        ("sweep_discrepancy", ds.sweep_discrepancy_sharded, pj.sweep_discrepancy,
+         (c.map_xyz, c.map_mask, *scans, pinv, fov, shape_r),
+         dict(diff_threshold=cfg.diff_threshold)),
+        ("sweep_discrepancy_map", ds.sweep_discrepancy_map_sharded, pj.sweep_discrepancy,
+         (c.map_xyz, c.map_mask, *scans, pinv, fov, shape_r),
+         dict(diff_threshold=cfg.diff_threshold)),
+        ("knn_avg_sqdist", ds.knn_avg_sqdist_sharded, knn.knn_avg_sqdist,
+         (c.map_xyz, static & c.masks["proj_static"], q.map_xyz, q.masks["static"]), {}),
+    ]
+    saved = counters()
+    try:
+        out = []
+        for name, sharded, one_device, args, kwargs in cases:
+            st = compare_sharded(name, mesh, sharded, one_device, args, kwargs)
+            if name == "knn_avg_sqdist":
+                qm = args[1]
+                per = -(-qm.shape[0] // mesh.size)
+                want = sum(bool(qm[i * per:(i + 1) * per].any()) for i in range(mesh.size))
+                if st["k1_launches"] != want:
+                    raise AssertionError(f"mesh knn_avg_sqdist: {st['k1_launches']} K1 scans, "
+                                         f"{want} shards hold queries")
+            out.append(st)
+            log(f"[13a] {json.dumps(st)}")
+        for name, args, kwargs in k4_calls:
+            st = compare_chunk_sharded(name, mesh, args, kwargs)
+            out.append(st)
+            log(f"[13a] {json.dumps(st)}")
+    finally:
+        set_counters(saved)
+    return out
+
+
+def mesh_k1_shards(k1_calls):
+    """Phase 13a: each K1 call of the brute mesh run (one a shard that holds
+    queries, at the shard's queries and the whole target map) replayed
+    against ``knn2_sqdists_plain`` on the same inputs: 0 ulps, and one scan
+    launch where both sides hold a valid point.  The counters are restored."""
+    saved = counters()
+    try:
+        out = []
+        for i, (q, qm, t, tm) in enumerate(k1_calls):
+            launches = int(bool(qm.any()) and bool(tm.any()))
+            st = {**compare_knn2(f"mesh_brute_shard_{i}", q, qm, t, tm, launches=launches),
+                  "launches": launches}
+            out.append(st)
+            log(f"[13a] K1 shard vs plain: {json.dumps(st)}")
+    finally:
+        set_counters(saved)
+    return out
+
+
+def phase_mesh(cfg=None, brute_masks=None, phase5_run=None, lifelong_in=None):
+    """Phase 13: LT-removert on a mesh of ``MESH_SLOTS`` slots of the one
+    card (``make_mesh([cuda:0] * 4)`` assigned to ``Removerter.mesh``).
+    (b) ``Removerter.run`` on phase 5's workload on the mesh: a run that
+    records its K4 calls, then a counted run (its 14 sets equal phase 4's,
+    as phase 5's do; its wall and stage walls beside phase 5's), and a
+    counted run with ``use_chunk_knn=False`` (K1 a shard; the same sets)
+    that records each shard's K1 call.  (a) every sharded function at
+    those shapes against its one-device function, bit for bit, each
+    recorded K4 call shard by shard (scans counted, ranges covering every
+    chunk once, counts summed, rows 0 ulps from the plain version), and
+    each recorded K1 shard against ``knn2_sqdists_plain`` (0 ulps).  (c) the whole-map path on phase 3's workload:
+    mesh against one device on the card, bit for bit, then card against CPU
+    under phase 3's rule.  (d) a one-process NCCL group
+    (``initialize_multihost``) and (b)'s default run on 2 slots through it.
+    (e) phase 10's cut chain on a 2-slot mesh: each round's nd, pd and
+    updated sets the one-device chain's, K4 launched.  Without phase 4's
+    masks (a call of this phase alone) one one-device run of phase 5 gives
+    them."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    import ltm_torch.kernels.knn as knn_mod
+    import ltm_torch.ltmap.lifelong as ll
+    import ltm_torch.removert.pipeline as pipe
+    from ltm_torch.core.config import RemovertConfig
+    from ltm_torch.dist import initialize_multihost, make_mesh
+    from ltm_torch.dist.removert import chunk_knn_sqdists_sharded
+    from ltm_torch.kernels.knn2 import knn2_sqdists
+    from ltm_torch.removert import Removerter, RemovertInput
+
+    os.environ["LTM_SYNC_STAGES"] = "1"
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    if cfg is None:
+        cfg = RemovertConfig(downsample_voxel_size=0.1)
+    full = workload(*FULL_WIDTH)
+    if brute_masks is None:
+        res, phase5_run = counted_run(Removerter(cfg, device=dev), full)
+        brute_masks = {n: m.cpu().numpy() for n, m in res.masks.items()}
+    mesh = make_mesh([dev] * MESH_SLOTS)
+
+    # (b) the driver on the mesh, recording its K4 calls in the first run
+    rm = Removerter(cfg, device=dev)
+    rm.mesh = mesh
+    calls = []
+    rec = chunk_recorder(cfg, calls, "mesh",
+                         run=lambda *a, **k: chunk_knn_sqdists_sharded(mesh, *a, **k))
+    pipe.chunk_knn_sqdists_sharded = lambda _mesh, *a, **k: rec(*a, **k)
+    saved = counters()
+    try:
+        masks_equal("mesh, recording run", rm.run(*full).masks, brute_masks)
+    finally:
+        pipe.chunk_knn_sqdists_sharded = chunk_knn_sqdists_sharded
+        set_counters(saved)
+    res, run_b = counted_run(rm, full)
+    masks_equal("mesh, default configuration", res.masks, brute_masks)
+    brute = Removerter(dataclasses.replace(cfg, use_chunk_knn=False), device=dev)
+    brute.mesh = mesh
+    k1_calls = []
+
+    def recording(*args):       # one call a shard: knn_avg_sqdist's K1 call
+        k1_calls.append(args)
+        return knn2_sqdists(*args)
+
+    knn_mod.knn2_sqdists = recording
+    try:
+        res_k1, run_k1 = counted_run(brute, full)
+    finally:
+        knn_mod.knn2_sqdists = knn2_sqdists
+    masks_equal("mesh, use_chunk_knn=False", res_k1.masks, brute_masks)
+    if run_b["k4_launches"] <= 0 or run_k1["k1_launches"] <= 0:
+        raise AssertionError(f"mesh runs launched K4 {run_b['k4_launches']} and K1 "
+                             f"{run_k1['k1_launches']} times; both must run")
+
+    # (a) the sharded functions, K4 shard by shard at the run's calls, and
+    # each K1 shard of the brute run against the plain version
+    functions = mesh_sharded_functions(mesh, rm, res, calls)
+    want_k4 = sum(st["scans"] for st in functions if "scans" in st)
+    if run_b["k4_launches"] != want_k4:
+        raise AssertionError(f"mesh run: {run_b['k4_launches']} K4 scans, its calls' shards "
+                             f"make {want_k4}")
+    k1_shards = mesh_k1_shards(k1_calls)
+    if sum(st["launches"] for st in k1_shards) != run_k1["k1_launches"]:
+        raise AssertionError(f"mesh brute run: {run_k1['k1_launches']} K1 scans, its shards' "
+                             f"calls make {sum(st['launches'] for st in k1_shards)}")
+    del k1_calls
+
+    # (c) the whole-map path on phase 3's workload
+    small = workload(4, 6000, 300.0)
+    flat = dataclasses.replace(cfg, use_block_map=False)
+    one_flat = Removerter(flat, device=dev).run(*small)
+    mesh_flat = Removerter(flat, device=dev)
+    mesh_flat.mesh = mesh
+    res_flat, run_c = counted_run(mesh_flat, small)
+    masks_equal("mesh, whole-map path", res_flat.masks,
+                {n: m.cpu().numpy() for n, m in one_flat.masks.items()})
+    cpu_flat = Removerter(flat, device="cpu").run(*small)
+    flat_vs_cpu = check_sets("mesh whole-map path, card vs CPU", cpu_flat, res_flat)
+
+    # (d) a one-process NCCL group under the mesh's collectives
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    if not initialize_multihost(coordinator_address=f"127.0.0.1:{port}", num_processes=1,
+                                process_id=0, device=dev):
+        raise AssertionError("initialize_multihost started no group")
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"the CUDA group runs {dist.get_backend()}, not nccl")
+        rm.mesh = make_mesh([dev] * 2)
+        if rm.mesh.group is None:
+            raise AssertionError("a mesh built after initialize_multihost has no group")
+        res_d, run_d = counted_run(rm, full)
+        masks_equal("mesh through NCCL", res_d.masks, brute_masks)
+    finally:
+        dist.destroy_process_group()
+
+    # (e) the lifelong chain, cut, on a 2-slot mesh
+    inputs = lifelong_in if lifelong_in is not None else lifelong_inputs()
+    n_sess, kf = LIFELONG_CUT
+    cut = [RemovertInput(scans=s.scans[:kf], poses=s.poses[:kf]) for s in inputs[:n_sess]]
+    cfg_l = lifelong_config()
+    one_chain = ll.lifelong_update(cut, cfg_l, device=dev)
+
+    class OnMesh(Removerter):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.mesh = make_mesh([dev] * 2)
+
+    ll.Removerter = OnMesh
+    set_counters((0, 0, 0, 0))
+    try:
+        t0 = time.perf_counter()
+        mesh_chain = ll.lifelong_update(cut, cfg_l, device=dev)
+        chain_s = time.perf_counter() - t0
+    finally:
+        ll.Removerter = Removerter
+    chain_k4 = counters()[0]
+    if chain_k4 <= 0:
+        raise AssertionError("mesh chain: no K4 scan launched")
+    for i, (a, b) in enumerate(zip(one_chain.rounds, mesh_chain.rounds, strict=True), start=2):
+        for name in ("nd", "pd", "updated"):
+            if not torch.equal(a.masks[name], b.masks[name]):
+                raise AssertionError(f"mesh chain round {i}: set {name} differs")
+
+    summary = {
+        "slots": MESH_SLOTS, "card": card_line(),
+        "default": {**run_b, "sets_equal_phase_4": True},
+        "phase5": ({k: phase5_run[k] for k in ("wall_s", "stages_s")}
+                   if phase5_run else "not run"),
+        "brute": {**run_k1, "sets_equal_phase_4": True, "k1_shards_vs_plain": k1_shards},
+        "sharded_functions": functions,
+        "flat": {"mesh_wall_s": run_c["wall_s"], "k1_launches": run_c["k1_launches"],
+                 "card_vs_cpu": flat_vs_cpu},
+        "nccl": {"slots": 2, "wall_s": run_d["wall_s"], "k4_launches": run_d["k4_launches"]},
+        "lifelong_cut": {"sessions": n_sess, "keyframes": kf, "slots": 2, "mesh_chain_s": chain_s,
+                         "k4_launches": chain_k4, "round_stats": mesh_chain.round_stats},
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    log(f"[13] {json.dumps(summary)}")
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -2062,6 +2491,7 @@ def main() -> int:
     lifelong, lifelong_in = phase_lifelong()
     optin = phase_optin(cfg, brute_masks, k4_run, lifelong_in[:2])
     headline = phase_headline()
+    mesh = phase_mesh(cfg, brute_masks, k4_run, lifelong_in)
 
     nd = calls[0]
     k4_nd = next(st for st in k4_calls if st["case"] == "full_width_nd")
@@ -2080,6 +2510,8 @@ def main() -> int:
         "replaces": "ltm/kernels/pallas_knn.py:95",
         "launches": last_run["knn2_launches"],
         "launches_path": "phase 4 (use_chunk_knn=False)",
+        "mesh_launches": mesh["brute"]["k1_launches"],
+        "mesh_launches_path": f"phase 13 ({MESH_SLOTS} slots, use_chunk_knn=False)",
         "merge_launches": last_run["knn2_merge_launches"],
         "max_abs_err": max(st["max_abs_err"] for st in calls),
         "ms": nd["kernel_ms"],
@@ -2109,6 +2541,8 @@ def main() -> int:
         "replaces": "ltm/kernels/chunk_knn.py:119",
         "launches": k4_run["k4_launches"],
         "launches_path": "phase 5 (RemovertConfig() defaults)",
+        "mesh_launches": mesh["default"]["k4_launches"],
+        "mesh_launches_path": f"phase 13 ({MESH_SLOTS} slots, RemovertConfig() defaults)",
         "lifelong_launches_per_round": lifelong["k4_launches_per_round"],
         "merge_launches": k4_run["k4_merge_launches"],
         "max_abs_err": max(st["max_abs_err"] for st in k4_calls),
@@ -2129,7 +2563,7 @@ def main() -> int:
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"slam": slam}))
-    print(json.dumps({"lifelong": lifelong, "optin": optin, "headline": headline}))
+    print(json.dumps({"lifelong": lifelong, "optin": optin, "headline": headline, "mesh": mesh}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -9,8 +9,9 @@ Usage:
 ``--device`` (default ``cuda``) is the port's counterpart of JAX's platform
 selection: ``cpu`` runs the plain PyTorch versions of the kernels.
 ``--mesh-devices`` keeps ``ltm``'s contract (default -1, every local
-device): one CUDA card, or the CPU, runs on one device, and more than one
-raises ``NotImplementedError`` until the multi-device paths are ported.
+device; ``ltm_torch.dist.mesh_from_config``): one CUDA card runs on one
+device, several cards shard the hot loops over a mesh, and ``n`` on the
+CPU is a mesh of ``n`` CPU slots (-1 there is one device).
 ``ltm``'s persistent XLA compilation cache has no counterpart: the CUDA
 kernels are built once per source hash into ``build/kernels``.
 """

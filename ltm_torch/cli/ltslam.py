@@ -10,9 +10,9 @@ Reads the reference session-directory protocol (Scans/ SCDs/
 singlesession_posegraph.g2o) and writes the reference trajectory files
 (``<sess>_{local,central}_{bfr,aft}_intersession_loops.txt``).  ``--device``
 (default ``cuda``) picks the torch device; ``--mesh-devices`` keeps
-``ltm``'s contract (default -1, every local device): one card, or the CPU,
-runs on one device, and more than one raises ``NotImplementedError`` until
-the multi-device paths are ported.
+``ltm``'s contract (default -1, every local device): one card, or the CPU
+with -1, runs on one device, and a mesh of more than one slot raises
+``NotImplementedError`` until the LT-SLAM mesh slice is ported.
 """
 
 from __future__ import annotations

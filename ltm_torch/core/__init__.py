@@ -5,3 +5,4 @@ from ltm_torch.core.config import (  # noqa: F401
     ScanContextConfig,
     SolverConfig,
 )
+from ltm_torch.core.pointcloud import PointCloud  # noqa: F401

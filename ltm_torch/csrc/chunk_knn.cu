@@ -300,7 +300,7 @@ struct ScanArgs {
   const float* q;           // (n, 3) queries, original order
   const bool* qm;           // (n,)
   const int* order;         // (n,) original index at each sorted position
-  int n, chunk, slabs;
+  int n, chunk, c0, n_range, slabs;   // the call scans chunks [c0, c0 + n_range)
   const float* xyz;         // (n_blocks * cap, 3)
   const bool* mask;         // (n_blocks * cap,)
   const bool* extra;        // (n_blocks * cap,) or null
@@ -308,20 +308,22 @@ struct ScanArgs {
   const float4 *lo4, *hi4, *slo4, *shi4;
   float clamp_radius, r2;
   int k_blocks, list_cap, seg;   // seg: listed blocks a work item
-  int* hits;                // (n_chunks, list_cap) listed blocks
-  int* n_hits;              // (n_chunks,) blocks the scoring takes (0: none)
-  int2* items;              // work items: (chunk * slabs + slab, segment)
+  // chunk-indexed scratch and outputs are indexed by the chunk's place in
+  // the range, c - c0, and `packed` by the sorted position less c0 * chunk
+  int* hits;                // (n_range, list_cap) listed blocks
+  int* n_hits;              // (n_range,) blocks the scoring takes (0: none)
+  int2* items;              // work items: ((c - c0) * slabs + slab, segment)
   unsigned long long* counts;   // [kCounts], see ltm_chunk_knn_scan
-  unsigned long long* packed;   // (n,) packed partial top 2 at sorted positions
+  unsigned long long* packed;   // (n_range * chunk,) packed partial top 2
   float* out;               // (n, 2) rows in original order
-  int* overflow;            // (n_chunks,)
+  int* overflow;            // (n_range,)
 };
 
 __global__ void __launch_bounds__(kCullThreads) ck_cull(const ScanArgs a) {
   __shared__ float red[3][kMaxChunk];
   __shared__ float s_center[3];
   __shared__ int s_cnt, s_hits, s_rad, s_base, s_tests;
-  const int tid = threadIdx.x, c = blockIdx.x;
+  const int tid = threadIdx.x, cl = blockIdx.x, c = a.c0 + cl;
   const int p0 = c * a.chunk;   // the chunk's first sorted position
   int p2 = 1;
   while (p2 < a.chunk) p2 <<= 1;
@@ -354,7 +356,7 @@ __global__ void __launch_bounds__(kCullThreads) ck_cull(const ScanArgs a) {
       const size_t o = a.order[p0 + i];
       a.out[2 * o] = a.out[2 * o + 1] = kBig;
     }
-    if (tid == 0) a.overflow[c] = a.n_hits[c] = 0;
+    if (tid == 0) a.overflow[cl] = a.n_hits[cl] = 0;
     return;
   }
   for (int h = p2 / 2; h >= 1; h >>= 1) {
@@ -385,7 +387,7 @@ __global__ void __launch_bounds__(kCullThreads) ck_cull(const ScanArgs a) {
 
   // two levels: a lane a super-block, then a lane a block of each one hit
   const int warp = tid / kWarp, lane = tid % kWarp;
-  int* list = a.hits + static_cast<size_t>(c) * a.list_cap;
+  int* list = a.hits + static_cast<size_t>(cl) * a.list_cap;
   int tests = 0;   // the warp's block and super-block tests
   for (int s0 = warp * kWarp; s0 < a.n_super; s0 += kCullThreads) {
     const int s = s0 + lane;
@@ -423,12 +425,12 @@ __global__ void __launch_bounds__(kCullThreads) ck_cull(const ScanArgs a) {
     } else if (listed == 0) {
       a.out[2 * o] = a.out[2 * o + 1] = none;
     } else if (nseg > 1) {
-      a.packed[p0 + i] = pack2(a.r2, a.r2);
+      a.packed[cl * a.chunk + i] = pack2(a.r2, a.r2);
     }
   }
   if (tid == 0) {
-    a.overflow[c] = over ? n_int - a.k_blocks : 0;
-    a.n_hits[c] = listed;
+    a.overflow[cl] = over ? n_int - a.k_blocks : 0;
+    a.n_hits[cl] = listed;
     const unsigned long long items = a.slabs * nseg;
     s_base = items ? static_cast<int>(atomicAdd(&a.counts[0], items)) : 0;
     atomicAdd(&a.counts[2], static_cast<unsigned long long>(s_tests));
@@ -437,7 +439,7 @@ __global__ void __launch_bounds__(kCullThreads) ck_cull(const ScanArgs a) {
   }
   __syncthreads();
   for (int i = tid; i < a.slabs * nseg; i += kCullThreads) {
-    a.items[s_base + i] = make_int2(c * a.slabs + i / nseg, i % nseg);
+    a.items[s_base + i] = make_int2(cl * a.slabs + i / nseg, i % nseg);
   }
 }
 
@@ -514,8 +516,8 @@ __global__ void __launch_bounds__(kScoreWarps * kWarp, 4) ck_score(const ScanArg
     it = __shfl_sync(~0u, it, 0);
     if (it >= n_items) return;
     const int2 w = a.items[it];
-    const int c = w.x / a.slabs, first = (w.x % a.slabs) * kSlab;
-    const int listed = a.n_hits[c];
+    const int cl = w.x / a.slabs, c = a.c0 + cl, first = (w.x % a.slabs) * kSlab;
+    const int listed = a.n_hits[cl];
     const int k0 = w.y * a.seg, k1 = min(listed, k0 + a.seg);
     float qx[kR], qy[kR], qz[kR], b1[kR], b2[kR];
 #pragma unroll
@@ -537,7 +539,7 @@ __global__ void __launch_bounds__(kScoreWarps * kWarp, 4) ck_score(const ScanArg
     }
     // the item's pieces t = 0 .. n_pieces-1: block k0 + t / pieces, slots
     // from (t % pieces) * kPiece; piece t + 1 is copied while t is scored
-    const int* list = a.hits + static_cast<size_t>(c) * a.list_cap;
+    const int* list = a.hits + static_cast<size_t>(cl) * a.list_cap;
     const int n_pieces = (k1 - k0) * pieces;
     auto piece_at = [&](int t, size_t& slot) {
       const int j0 = (t % pieces) * kPiece;
@@ -603,9 +605,10 @@ __global__ void __launch_bounds__(kScoreWarps * kWarp, 4) ck_score(const ScanArg
 #pragma unroll
     for (int r = 0; r < kR; ++r) {
       if (b2[r] == -inf) continue;
-      const int p = c * a.chunk + first + r * kWarp + lane;
+      const int i = first + r * kWarp + lane;
+      const int p = c * a.chunk + i;
       if (listed > a.seg) {
-        merge_packed(a.packed + p, b1[r], b2[r]);
+        merge_packed(a.packed + static_cast<size_t>(cl) * a.chunk + i, b1[r], b2[r]);
       } else {
         const size_t o = a.order[p];
         a.out[2 * o] = b1[r];
@@ -618,11 +621,13 @@ __global__ void __launch_bounds__(kScoreWarps * kWarp, 4) ck_score(const ScanArg
 // The rows of the chunks that listed more than seg blocks, from their
 // packed top 2s.
 __global__ void ck_merge(const ScanArgs a) {
-  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < a.n; p += gridDim.x * blockDim.x) {
-    if (a.n_hits[p / a.chunk] <= a.seg) continue;
-    const size_t o = a.order[p];
+  const int first = a.c0 * a.chunk;
+  const int len = min(a.n_range * a.chunk, a.n - first);   // the range's sorted positions
+  for (int pl = blockIdx.x * blockDim.x + threadIdx.x; pl < len; pl += gridDim.x * blockDim.x) {
+    if (a.n_hits[pl / a.chunk] <= a.seg) continue;
+    const size_t o = a.order[first + pl];
     if (!a.qm[o]) continue;
-    const unsigned long long v = a.packed[p];
+    const unsigned long long v = a.packed[pl];
     a.out[2 * o] = __uint_as_float(static_cast<unsigned>(v));
     a.out[2 * o + 1] = __uint_as_float(static_cast<unsigned>(v >> 32));
   }
@@ -740,38 +745,43 @@ extern "C" int ltm_chunk_knn_prep(const float* q, const bool* qm, int n, float i
   return static_cast<int>(cudaGetLastError());
 }
 
-// The scan, on `stream`: ck_cull, ck_score and, when a chunk can list more
-// than seg blocks (min(k_blocks, n_blocks) > seg), ck_merge.  q, qm and the
-// block map as for the prep; order (n,) i32, the stable sort of the keys;
-// bounds from the prep; seg, the listed blocks a work item.  scratch:
-// `scratch_bytes` bytes, 8-aligned, laid out as packed (n) u64 when the
-// merge runs, work items (n_chunks * ceil(chunk / kSlab) * ceil(list_cap /
-// seg)) int2, hits (n_chunks * list_cap) i32 and n_hits (n_chunks) i32.
+// The scan, on `stream`, of the chunks [c0, c1) of the ceil(n / chunk)
+// chunks: ck_cull, ck_score and, when a chunk can list more than seg blocks
+// (min(k_blocks, n_blocks) > seg), ck_merge.  A chunk's rows do not depend
+// on any other chunk, so a range gives the bits of the whole call in its
+// rows (a mesh of device slots scans the chunk axis in ranges).  q, qm and
+// the block map as for the prep; order (n,) i32, the stable sort of the
+// keys; bounds from the prep; seg, the listed blocks a work item.  With
+// n_range = c1 - c0, scratch: `scratch_bytes` bytes, 8-aligned, laid out as
+// packed (n_range * chunk) u64 when the merge runs, work items (n_range *
+// ceil(chunk / kSlab) * ceil(list_cap / seg)) int2, hits (n_range *
+// list_cap) i32 and n_hits (n_range) i32.
 // counts (kCounts) u64, which this zeroes: [0] work items, [1] work items
 // taken (the work items plus one a scoring warp), [2] block and super-block
 // tests, [3] chunks culled (those with a valid query), [4] the most tests
-// in one chunk.  Out: out (n, 2) f32 in original order, overflow (n_chunks)
-// i32.  Returns the first error (0 on success).
+// in one chunk.  Out: out (n, 2) f32 in original order, the rows of the
+// range's queries (no other row is written), overflow (n_range) i32.
+// Returns the first error (0 on success).
 extern "C" int ltm_chunk_knn_scan(const float* q, const bool* qm, const int* order, int n,
-                                  int chunk, const float* xyz, const bool* mask,
+                                  int chunk, int c0, int c1, const float* xyz, const bool* mask,
                                   const bool* extra, int n_blocks, int cap, const void* bounds,
                                   float clamp_radius, float r2, int k_blocks, int seg,
                                   void* scratch, long long scratch_bytes,
                                   unsigned long long* counts, float* out, int* overflow,
                                   void* stream) {
   if (n <= 0 || chunk <= 0 || chunk > kMaxChunk || n_blocks <= 0 || cap <= 0 || k_blocks <= 0 ||
-      seg <= 0) {
+      seg <= 0 || c0 < 0 || c1 <= c0 || c1 > (n + chunk - 1) / chunk) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int list_cap = std::min(k_blocks, n_blocks);
   const bool merge = list_cap > seg;
-  const int n_chunks = (n + chunk - 1) / chunk;
+  const int n_chunks = c1 - c0;
   const int slabs = (chunk + kSlab - 1) / kSlab;
   const int n_super = (n_blocks + kSuper - 1) / kSuper;
   const long long max_items =
       static_cast<long long>(n_chunks) * slabs * ((list_cap + seg - 1) / seg);
   char* base = static_cast<char*>(scratch);
-  const long long at_items = merge ? 8LL * n : 0;
+  const long long at_items = merge ? 8LL * n_chunks * chunk : 0;
   const long long at_hits = at_items + 8 * max_items;
   const long long at_n_hits = at_hits + 4LL * n_chunks * list_cap;
   if (max_items >= (1LL << 31) || scratch_bytes < at_n_hits + 4LL * n_chunks) {
@@ -779,7 +789,7 @@ extern "C" int ltm_chunk_knn_scan(const float* q, const bool* qm, const int* ord
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float4* lo4 = static_cast<const float4*>(bounds);
-  ScanArgs a{q, qm, order, n, chunk, slabs, xyz, mask, extra, n_blocks, cap, n_super,
+  ScanArgs a{q, qm, order, n, chunk, c0, n_chunks, slabs, xyz, mask, extra, n_blocks, cap, n_super,
              lo4, lo4 + n_blocks, lo4 + 2 * n_blocks, lo4 + 2 * n_blocks + n_super,
              clamp_radius, r2, k_blocks, list_cap, seg, reinterpret_cast<int*>(base + at_hits),
              reinterpret_cast<int*>(base + at_n_hits), reinterpret_cast<int2*>(base + at_items),
@@ -798,7 +808,7 @@ extern "C" int ltm_chunk_knn_scan(const float* q, const bool* qm, const int* ord
   ck_score<<<static_cast<int>(ctas), kScoreWarps * kWarp, 0, s>>>(a);
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0 || !merge) return rc;
-  ck_merge<<<std::min((n + 255) / 256, 4096), 256, 0, s>>>(a);
+  ck_merge<<<std::min((n_chunks * chunk + 255) / 256, 4096), 256, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -30,10 +30,14 @@ from ltm_torch.kernels.projection import (
     discrepancy_mask,
     discrepancy_vs_image,
     packed_winner_image,
+    range_image,
+    winner_mask,
 )
 
 __all__ = ["BlockMap", "build_block_map", "build_block_map_with_slots",
-           "required_k_blocks_np", "block_sweep_discrepancy",
+           "required_k_blocks", "required_k_blocks_np", "block_sweep_discrepancy",
+           "block_sweep_discrepancy_projected", "block_projected_scan_images",
+           "block_sweep_visibility",
            "block_sweep_discrepancy_vs_images", "block_fused_visibility_images",
            "block_sweep_discrepancy_vs_images_presel",
            "block_fused_phase_a", "block_fused_phase_b"]
@@ -159,6 +163,14 @@ def required_k_blocks_np(centers: np.ndarray, radius: np.ndarray,
     return int(min(max(need, round_to), centers.shape[0]))
 
 
+def required_k_blocks(bm: BlockMap, origins: np.ndarray, max_range: float,
+                      round_to: int = 128) -> int:
+    """:func:`required_k_blocks_np` on a block map's (host-fetched)
+    centers, radii and validity."""
+    return required_k_blocks_np(bm.centers.cpu().numpy(), bm.radius.cpu().numpy(),
+                                bm.block_valid.cpu().numpy(), origins, max_range, round_to)
+
+
 def _select_blocks(bm: BlockMap, origin: torch.Tensor, max_range: float, k_blocks: int):
     """Indices of the k nearest blocks that intersect the range ball, and
     which of them are real.  ``topk``'s tie order is unspecified, but only
@@ -183,6 +195,69 @@ def block_sweep_discrepancy(bm: BlockMap, scans_xyz, scans_mask, pose_inv, poses
         dyn = discrepancy_mask(local, work_mask, scan_xyz, scan_mask, fov, shape,
                                diff_threshold, reverse)
         out[sel] |= dyn.reshape(k_blocks, bm.block_capacity)
+    return out.reshape(-1)
+
+
+def _selected(bm: BlockMap, extra, sel, sel_valid):
+    """(global xyz (k·cap, 3), mask (k·cap,)) of the selected blocks' slots,
+    restricted to ``extra`` ((n_blocks, cap) or None)."""
+    mask = bm.mask[sel] & sel_valid[:, None]
+    if extra is not None:
+        mask = mask & extra[sel]
+    return bm.xyz[sel].reshape(-1, 3), mask.reshape(-1)
+
+
+def block_sweep_discrepancy_projected(target_bm: BlockMap, target_extra, source_bm: BlockMap,
+                                      source_extra, pose_inv, poses, fov, shape, proj_shape,
+                                      k_blocks: int, max_range: float = 200.0,
+                                      diff_threshold: float = 0.1, reverse: bool = False):
+    """Block-local ``sweep_discrepancy_projected`` (the ND/PD strong-weak
+    core): per keyframe the target's and the source's in-range blocks; the
+    source's winners at ``proj_shape`` form the projected scan."""
+    cap = target_bm.block_capacity
+    t_extra = target_extra.reshape(target_bm.num_blocks, cap)
+    s_extra = source_extra.reshape(source_bm.num_blocks, source_bm.block_capacity)
+    out = torch.zeros_like(target_bm.mask)
+    for Tinv, T in zip(pose_inv, poses):
+        tsel, tval = _select_blocks(target_bm, T[:3, 3], max_range, k_blocks)
+        ssel, sval = _select_blocks(source_bm, T[:3, 3], max_range, k_blocks)
+        t_xyz, t_mask = _selected(target_bm, t_extra, tsel, tval)
+        s_xyz, s_mask = _selected(source_bm, s_extra, ssel, sval)
+        t_local = apply_pose(t_xyz, Tinv)
+        s_local = apply_pose(s_xyz, Tinv)
+        swin = winner_mask(s_local, s_mask, fov, proj_shape)[0]
+        dyn = discrepancy_mask(t_local, t_mask, s_local, swin, fov, shape, diff_threshold, reverse)
+        out[tsel] |= dyn.reshape(k_blocks, cap)
+    return out.reshape(-1)
+
+
+def block_projected_scan_images(source_bm: BlockMap, source_extra, pose_inv, poses, fov, shape,
+                                proj_shape, k_blocks: int, max_range: float = 200.0):
+    """Block-local ``projected_scan_images``: (K, nrow*ncol) images of the
+    projected scans, with the block selection of
+    :func:`block_sweep_discrepancy_projected`."""
+    s_extra = source_extra.reshape(source_bm.num_blocks, source_bm.block_capacity)
+    imgs = [source_bm.xyz.new_empty((0, shape[0] * shape[1]))]
+    for Tinv, T in zip(pose_inv, poses):
+        s_xyz, s_mask = _selected(source_bm, s_extra,
+                                  *_select_blocks(source_bm, T[:3, 3], max_range, k_blocks))
+        s_local = apply_pose(s_xyz, Tinv)
+        swin = winner_mask(s_local, s_mask, fov, proj_shape)[0]
+        imgs.append(range_image(s_local, swin, fov, shape)[None])
+    return torch.cat(imgs)
+
+
+def block_sweep_visibility(bm: BlockMap, extra_mask, pose_inv, poses, fov, shape, k_blocks: int,
+                           max_range: float = 200.0):
+    """Block-local ``sweep_visibility`` over the subset ``extra_mask``."""
+    cap = bm.block_capacity
+    emask = extra_mask.reshape(bm.num_blocks, cap)
+    out = torch.zeros_like(bm.mask)
+    for Tinv, T in zip(pose_inv, poses):
+        sel, sel_valid = _select_blocks(bm, T[:3, 3], max_range, k_blocks)
+        xyz, mask = _selected(bm, emask, sel, sel_valid)
+        win = winner_mask(apply_pose(xyz, Tinv), mask, fov, shape)[0]
+        out[sel] |= win.reshape(k_blocks, cap)
     return out.reshape(-1)
 
 

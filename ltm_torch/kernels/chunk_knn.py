@@ -43,7 +43,8 @@ import torch
 from ltm_torch.kernels.blocks import BlockMap
 from ltm_torch.kernels.projection import _recip, _sqrt, sumsq3
 
-__all__ = ["ChunkKnnResult", "chunk_knn_sqdists", "chunk_knn_sqdists_plain", "chunk_knn_avg_sqdist"]
+__all__ = ["ChunkKnnResult", "ChunkKnnPrep", "chunk_knn_sqdists", "chunk_knn_sqdists_plain",
+           "chunk_knn_avg_sqdist", "chunk_knn_prep", "chunk_knn_scan_range"]
 
 _BIG = 1e30
 _PAIRS = 1 << 22          # plain version: pairs scored per step (bounds its memory)
@@ -188,15 +189,96 @@ def chunk_knn_sqdists_plain(query_xyz, query_mask, bm: BlockMap, target_extra,
                             k_blocks: int = 64, sort_cell: float = 25.0) -> ChunkKnnResult:
     """:func:`chunk_knn_sqdists` through the plain scan, on either device:
     sort, chunk, scan and write back by ``order``."""
+    prep = chunk_knn_prep(query_xyz, query_mask, bm, target_extra, chunk=chunk,
+                          sort_cell=sort_cell, plain=True)
+    overflow, rows = chunk_knn_scan_range(prep, 0, prep.n_chunks, clamp_radius, k=k,
+                                          k_blocks=k_blocks)
+    res = torch.empty((prep.n, k), dtype=torch.float32, device=query_xyz.device)
+    res[prep.order] = rows[:prep.n]
+    return ChunkKnnResult(res, overflow, prep.order.int())
+
+
+class ChunkKnnPrep(NamedTuple):
+    """What a scan of any range of a call's chunks reads, on one device:
+    the Morton order and the chunking of the queries and the target
+    blocks' bounds, computed once a call (``ltm``'s
+    ``chunk_knn_sqdists_sharded`` sorts and bounds once and splits the
+    scan).  ``scan`` holds the plain version's (sorted chunks (C, chunk,
+    3) and (C, chunk), block xyz, target mask, block validity and AABBs)
+    or the kernels' (queries, mask, order, target arrays, bounds)."""
+
+    order: torch.Tensor     # (N,) original query index at each sorted position
+    n: int
+    chunk: int
+    n_chunks: int
+    plain: bool
+    scan: tuple
+
+    def to(self, device) -> "ChunkKnnPrep":
+        def move(x):
+            if isinstance(x, tuple):
+                return tuple(move(v) for v in x)
+            return x.to(device) if isinstance(x, torch.Tensor) else x
+
+        return self._replace(order=self.order.to(device), scan=move(self.scan))
+
+
+def chunk_knn_prep(query_xyz, query_mask, bm: BlockMap, target_extra, chunk: int = 512,
+                   sort_cell: float = 25.0, plain=None) -> ChunkKnnPrep:
+    """The sort, chunking and block bounds of a chunk kNN call: the plain
+    steps for CPU tensors (or ``plain=True`` on either device), the prep
+    kernels (keys, CUB's radix sort, bounds) for CUDA tensors."""
+    dev = query_xyz.device
+    plain = dev.type == "cpu" if plain is None else plain
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"chunk kNN runs on cuda or cpu, not {dev}")
     _check(query_xyz, query_mask, bm)
     n = query_xyz.shape[0]
-    t_mask, bval, blo, bhi = _block_bounds(bm, target_extra)
-    qx, qm, order = _prep_sorted_chunks(query_xyz, query_mask, chunk, sort_cell)
-    overflow, d = _scan_chunks_plain(qx, qm, bm.xyz, t_mask, bval, blo, bhi, clamp_radius, k,
-                                     k_blocks)
-    res = torch.empty((n, k), dtype=torch.float32, device=query_xyz.device)
-    res[order] = d.reshape(-1, k)[:n]
-    return ChunkKnnResult(res, overflow, order.int())
+    n_chunks = -(-n // chunk)
+    if plain:
+        t_mask, bval, blo, bhi = _block_bounds(bm, target_extra)
+        qx, qm, order = _prep_sorted_chunks(query_xyz, query_mask, chunk, sort_cell)
+        return ChunkKnnPrep(order, n, chunk, n_chunks, True, (qx, qm, bm.xyz, t_mask, bval, blo, bhi))
+    if not 0 < n < 2**31:
+        raise ValueError(f"chunk kNN kernel takes 1 to 2^31 - 1 queries, got {n}")
+    q, qm = query_xyz.contiguous(), query_mask.contiguous()
+    targets = _target_arrays(bm, target_extra)
+    with torch.cuda.device(dev):
+        order, bounds = _prep_cuda(q, qm, targets, sort_cell)
+    return ChunkKnnPrep(order, n, chunk, n_chunks, False, (q, qm, targets, bounds))
+
+
+def chunk_knn_scan_range(prep: ChunkKnnPrep, c0: int, c1: int, clamp_radius: float,
+                         k: int = 2, k_blocks: int = 64):
+    """(chunk_overflow (c1 - c0,) int32, rows ((c1 - c0)·chunk, k)): the scan
+    of chunks ``[c0, c1)`` of a prepared call, its rows at the chunks'
+    sorted positions (1e30 past the last query).  A chunk's rows do not
+    depend on another chunk, so a range gives the whole call's bits in its
+    rows.  On the card it launches K4's scan over the range (counted in
+    ``chunk_knn_sqdists.launches``, its counts in ``.counts``); the plain
+    version scans the same chunks."""
+    if not 0 <= c0 <= c1 <= prep.n_chunks:
+        raise ValueError(f"chunk range [{c0}, {c1}) outside the call's {prep.n_chunks} chunks")
+    chunk = prep.chunk
+    dev = prep.order.device
+    if c0 == c1:
+        return (torch.zeros((0,), dtype=torch.int32, device=dev),
+                torch.zeros((0, k), dtype=torch.float32, device=dev))
+    if prep.plain:
+        qx, qm, bm_xyz, t_mask, bval, blo, bhi = prep.scan
+        overflow, d = _scan_chunks_plain(qx[c0:c1], qm[c0:c1], bm_xyz, t_mask, bval, blo, bhi,
+                                         clamp_radius, k, k_blocks)
+        return overflow, d.reshape(-1, k)
+    if k != 2:
+        raise ValueError(f"the chunk kNN kernel computes k=2, not k={k}")
+    q, qm, targets, bounds = prep.scan
+    with torch.cuda.device(q.device):
+        out, overflow = _scan_cuda(q, qm, prep.order, targets, bounds, clamp_radius, chunk,
+                                   k_blocks, c0=c0, c1=c1)
+    rows = out.new_full(((c1 - c0) * chunk, 2), _BIG)
+    pos = prep.order[c0 * chunk:min(c1 * chunk, prep.n)].long()
+    rows[:pos.shape[0]] = out[pos]
+    return overflow, rows
 
 
 def _check(query_xyz, query_mask, bm: BlockMap):
@@ -238,19 +320,17 @@ def chunk_knn_sqdists(
     if k != 2:
         raise ValueError(f"the chunk kNN kernel computes k=2, not k={k}")
     _check(query_xyz, query_mask, bm)
-    n = query_xyz.shape[0]
-    if n == 0:
+    if query_xyz.shape[0] == 0:
         return ChunkKnnResult(query_xyz.new_empty((0, 2)),
                               torch.empty((0,), dtype=torch.int32, device=dev),
                               torch.empty((0,), dtype=torch.int32, device=dev))
-    if n >= 2**31:
-        raise ValueError("chunk kNN kernel takes fewer than 2^31 queries")
-    q, qm = query_xyz.contiguous(), query_mask.contiguous()
-    targets = _target_arrays(bm, target_extra)
+    prep = chunk_knn_prep(query_xyz, query_mask, bm, target_extra, chunk=chunk,
+                          sort_cell=sort_cell)
+    q, qm, targets, bounds = prep.scan
     with torch.cuda.device(dev):
-        order, bounds = _prep_cuda(q, qm, targets, sort_cell)
-        out, overflow = _scan_cuda(q, qm, order, targets, bounds, clamp_radius, chunk, k_blocks)
-    return ChunkKnnResult(out, overflow, order)
+        out, overflow = _scan_cuda(q, qm, prep.order, targets, bounds, clamp_radius, chunk,
+                                   k_blocks)
+    return ChunkKnnResult(out, overflow, prep.order)
 
 
 chunk_knn_sqdists.launches = 0   # calls that launched the scan (cull and scoring)
@@ -370,22 +450,23 @@ def _prep_cuda(q, qm, targets, sort_cell: float):
     return order, bounds
 
 
-def _scan_scratch_bytes(n: int, chunk: int, n_blocks: int, k_blocks: int, seg: int) -> int:
-    """Bytes of the scan's scratch: packed top-2 words (when the merge
-    runs), work items, hit lists and hit counts."""
+def _scan_scratch_bytes(n_range: int, chunk: int, n_blocks: int, k_blocks: int, seg: int) -> int:
+    """Bytes of the scratch of a scan of ``n_range`` chunks: packed top-2
+    words (when the merge runs), work items, hit lists and hit counts."""
     list_cap = min(k_blocks, n_blocks)
-    n_chunks = -(-n // chunk)
-    items = n_chunks * -(-chunk // _SLAB) * -(-list_cap // seg)
-    return 8 * n * (list_cap > seg) + 8 * items + 4 * n_chunks * (list_cap + 1)
+    items = n_range * -(-chunk // _SLAB) * -(-list_cap // seg)
+    return 8 * n_range * chunk * (list_cap > seg) + 8 * items + 4 * n_range * (list_cap + 1)
 
 
 def _scan_cuda(q, qm, order, targets, bounds, clamp_radius: float, chunk: int, k_blocks: int,
-               seg: int = _SEG):
-    """(out (N, 2), chunk_overflow (C,)): one C call launches ``ck_cull``,
-    ``ck_score`` (work items of ``seg`` listed blocks) and, when a chunk can
-    list more than ``seg`` blocks, ``ck_merge``, with scratch sized from
-    what the host knows (chunks, ``k_blocks``): no host sync.  The scan's
-    counts go to ``chunk_knn_sqdists.counts``."""
+               seg: int = _SEG, c0: int = 0, c1=None):
+    """(out (N, 2), chunk_overflow (c1 - c0,)): one C call launches
+    ``ck_cull``, ``ck_score`` (work items of ``seg`` listed blocks) and,
+    when a chunk can list more than ``seg`` blocks, ``ck_merge``, over the
+    chunks ``[c0, c1)`` (all of them by default), with scratch sized from
+    what the host knows (the range, ``k_blocks``): no host sync.  Only the
+    range's queries get rows in ``out``.  The scan's counts go to
+    ``chunk_knn_sqdists.counts``."""
     n, dev = q.shape[0], q.device
     xyz, mask, extra = targets
     n_blocks, cap = mask.shape
@@ -394,13 +475,16 @@ def _scan_cuda(q, qm, order, targets, bounds, clamp_radius: float, chunk: int, k
                          f"seg >= 1, got {chunk}, {k_blocks} and {seg}")
     if -(-n // chunk) * chunk >= 2**31:
         raise ValueError("chunk kNN kernel takes fewer than 2^31 padded queries")
-    nbytes = _scan_scratch_bytes(n, chunk, n_blocks, k_blocks, seg)
+    c1 = -(-n // chunk) if c1 is None else c1
+    if not 0 <= c0 < c1 <= -(-n // chunk):
+        raise ValueError(f"chunk range [{c0}, {c1}) outside the call's {-(-n // chunk)} chunks")
+    nbytes = _scan_scratch_bytes(c1 - c0, chunk, n_blocks, k_blocks, seg)
     scratch = torch.empty((-(-nbytes // 8),), dtype=torch.int64, device=dev)
     counts = torch.empty((_COUNTS,), dtype=torch.int64, device=dev)
     out = torch.empty((n, 2), dtype=torch.float32, device=dev)
-    overflow = torch.empty((-(-n // chunk),), dtype=torch.int32, device=dev)
+    overflow = torch.empty((c1 - c0,), dtype=torch.int32, device=dev)
     rc = _lib().ltm_chunk_knn_scan(
-        q.data_ptr(), qm.data_ptr(), order.data_ptr(), n, chunk, xyz.data_ptr(),
+        q.data_ptr(), qm.data_ptr(), order.data_ptr(), n, chunk, c0, c1, xyz.data_ptr(),
         mask.data_ptr(), _ptr(extra), n_blocks, cap, bounds.data_ptr(),
         ctypes.c_float(clamp_radius), ctypes.c_float(clamp_radius * clamp_radius), k_blocks, seg,
         scratch.data_ptr(), 8 * scratch.numel(), counts.data_ptr(), out.data_ptr(),
@@ -424,8 +508,8 @@ def _lib() -> ctypes.CDLL:
     lib.ltm_chunk_knn_prep_bytes.restype = ll
     lib.ltm_chunk_knn_prep.argtypes = [p, p, i, f, p, p, p, i, i, p, ll, p, p, p]
     lib.ltm_chunk_knn_prep.restype = i
-    lib.ltm_chunk_knn_scan.argtypes = [p, p, p, i, i, p, p, p, i, i, p, f, f, i, i, p, ll,
-                                       p, p, p, p]
+    lib.ltm_chunk_knn_scan.argtypes = [p, p, p, i, i, i, i, p, p, p, i, i, p, f, f, i, i, p,
+                                       ll, p, p, p, p]
     lib.ltm_chunk_knn_scan.restype = i
     lib.ltm_chunk_knn_config.argtypes = [ctypes.POINTER(i)] * 5
     lib.ltm_chunk_knn_config.restype = None

@@ -40,8 +40,11 @@ __all__ = [
     "fused_visibility_images",
     "discrepancy_mask",
     "discrepancy_vs_image",
+    "projected_scan_images",
     "sweep_discrepancy",
+    "sweep_discrepancy_projected",
     "sweep_discrepancy_vs_images",
+    "sweep_visibility",
 ]
 
 NO_POINT = 10000.0        # kFlagNoPOINT (ltremovert/include/removert/utility.h:93)
@@ -241,13 +244,13 @@ def fused_visibility_images(source_xyz, source_mask, pose_inv, fov, shape,
     """(visible-from-any-keyframe union mask, (K, nrow*ncol) winner images)
     of a whole map, one packed winner pass per keyframe."""
     union = torch.zeros(source_xyz.shape[:-1], dtype=torch.bool, device=source_xyz.device)
-    imgs = []
+    imgs = [source_xyz.new_empty((0, shape[0] * shape[1]))]   # K = 0 gives (0, n_pix)
     for Tinv in pose_inv:
         local = apply_pose(source_xyz, Tinv)
         win, img = packed_winner_image(local, source_mask, fov, proj_shape, shape, scale)
         union |= win
-        imgs.append(img)
-    return union, torch.stack(imgs)
+        imgs.append(img[None])
+    return union, torch.cat(imgs)
 
 
 def discrepancy_vs_image(map_xyz_local, map_mask, scan_img, fov, shape,
@@ -293,4 +296,41 @@ def sweep_discrepancy_vs_images(target_xyz, target_mask, scan_imgs, pose_inv, fo
         local = apply_pose(target_xyz, Tinv)
         out |= discrepancy_vs_image(local, target_mask, img, fov, shape,
                                     diff_threshold, reverse)
+    return out
+
+
+def projected_scan_images(source_xyz, source_mask, pose_inv, fov, shape, proj_shape):
+    """(K, nrow*ncol) range images at ``shape`` of the projected scans: per
+    keyframe, the source points that win their pixel at ``proj_shape``
+    (``parseScansViaProjection``), scattered-min at ``shape``."""
+    imgs = [source_xyz.new_empty((0, shape[0] * shape[1]))]   # K = 0 gives (0, n_pix)
+    for Tinv in pose_inv:
+        local = apply_pose(source_xyz, Tinv)
+        win = winner_mask(local, source_mask, fov, proj_shape)[0]
+        imgs.append(range_image(local, win, fov, shape)[None])
+    return torch.cat(imgs)
+
+
+def sweep_discrepancy_projected(target_xyz, target_mask, source_xyz, source_mask, pose_inv,
+                                fov, shape, proj_shape, diff_threshold: float = 0.1,
+                                reverse: bool = False):
+    """OR over keyframes of the discrepancy of the target (delta) map
+    against each keyframe's projected scan of the source map, derived on
+    the fly (the ND/PD strong-weak core, ``Removerter.cpp:429-540``)."""
+    out = torch.zeros(target_xyz.shape[:-1], dtype=torch.bool, device=target_xyz.device)
+    for Tinv in pose_inv:
+        t_local = apply_pose(target_xyz, Tinv)
+        s_local = apply_pose(source_xyz, Tinv)
+        swin = winner_mask(s_local, source_mask, fov, proj_shape)[0]
+        out |= discrepancy_mask(t_local, target_mask, s_local, swin, fov, shape,
+                                diff_threshold, reverse)
+    return out
+
+
+def sweep_visibility(map_xyz_global, map_mask, pose_inv, fov, shape):
+    """OR over keyframes of the winner mask: the map points visible from at
+    least one keyframe at this resolution (``Session.cpp:348-360``)."""
+    out = torch.zeros(map_xyz_global.shape[:-1], dtype=torch.bool, device=map_xyz_global.device)
+    for Tinv in pose_inv:
+        out |= winner_mask(apply_pose(map_xyz_global, Tinv), map_mask, fov, shape)[0]
     return out

@@ -23,9 +23,17 @@ The opt-in configurations run as in ``ltm``: ``use_occlusion_culling``
 construction, ``ltm_torch.kernels.occlusion``), ``use_grid_knn`` (the
 clamped grid 2-NN, ``ltm_torch.kernels.grid_knn``), ``device_scan_prep``
 (``ltm_torch.removert.session``) and ``use_self_removert`` (the
-remove → revert → remove loop).  Not ported yet, and refused with
-``NotImplementedError`` rather than run differently: a device mesh of more
-than one device.
+remove → revert → remove loop).
+
+``cfg.mesh_devices`` puts the hot loops on a mesh of device slots
+(``ltm_torch.dist``), as ``ltm`` does: the forward, winner and
+strong/weak sweeps sharded over keyframes, the chunked kNN over Morton
+chunks (each slot launching K4's scan over its chunk range) and the brute
+kNN over queries (K1 a slot), every result bit-equal to the one-device
+path.  On one card ``mesh_from_config`` gives no mesh, as ``ltm`` on one
+chip; a mesh of repeated slots (``make_mesh([cuda:0] * 4)``) is assigned to
+``Removerter.mesh``.  The opt-in culled, presel and grid paths stay
+unsharded, as in ``ltm``.
 """
 
 from __future__ import annotations
@@ -40,6 +48,16 @@ import torch
 
 from ltm_torch.core.config import RemovertConfig
 from ltm_torch.device import resolve_device
+from ltm_torch.dist.mesh import mesh_from_config
+from ltm_torch.dist.removert import (
+    block_fused_visibility_images_sharded,
+    block_sweep_discrepancy_sharded,
+    block_sweep_discrepancy_vs_images_sharded,
+    chunk_knn_sqdists_sharded,
+    fused_visibility_images_sharded,
+    sweep_discrepancy_vs_images_sharded,
+)
+from ltm_torch.dist.sharding import knn_avg_sqdist_sharded, sweep_discrepancy_sharded
 from ltm_torch.io.pcd import write_pcd
 from ltm_torch.kernels.blocks import (
     block_fused_phase_a,
@@ -128,23 +146,6 @@ class _IdCache:
         return value
 
 
-def mesh_size(mesh_devices: Optional[int], device: torch.device) -> int:
-    """Devices the hot loops would shard over, by ``ltm``'s contract for
-    ``cfg.mesh_devices``: None, 0 or 1 one device, -1 every local device
-    (the CUDA cards, or one CPU), n that many."""
-    if mesh_devices in (None, 0, 1):
-        return 1
-    if mesh_devices == -1:
-        return torch.cuda.device_count() if device.type == "cuda" else 1
-    return mesh_devices
-
-
-def _check_supported(cfg: RemovertConfig, device: torch.device) -> None:
-    if mesh_size(cfg.mesh_devices, device) > 1:
-        raise NotImplementedError("mesh_devices is ported in a later slice (the "
-                                  "multi-device paths); unset it")
-
-
 class Removerter:
     def __init__(self, cfg: Optional[RemovertConfig] = None, device=None):
         self.cfg = cfg or RemovertConfig()
@@ -166,12 +167,16 @@ class Removerter:
         # the blocks it kept (for the winner pass: near blocks and far
         # survivors) out of the layout's
         self.occlusion_stats: list = []
+        # mesh of device slots for the hot loops (cfg.mesh_devices; the
+        # reference's OpenMP loops at device scale, Session.cpp:408,491)
+        self.mesh = mesh_from_config(self.cfg.mesh_devices, self.device)
+        if self.mesh is not None:
+            log.info("removert: sharding hot loops over %d slots", self.mesh.size)
 
     # ------------------------------------------------------------------
     def run(self, central_inp: RemovertInput, query_inp: RemovertInput,
             save_directory: Optional[str] = None) -> RemovertResult:
         cfg = self.cfg
-        _check_supported(cfg, self.device)
         fov = (cfg.vfov, cfg.hfov)
         self._kbm_cache = _IdCache()
         self.chunk_knn_fallbacks = []
@@ -333,14 +338,23 @@ class Removerter:
         shape = rimg_shape(fov, cfg.nd_pd_filter_resolution)
         K = sess.num_keyframes
         scale = self._pack_scale(sess)
-        if sess.bm is not None and cfg.use_occlusion_culling:
+        if sess.bm is not None and self.mesh is None and cfg.use_occlusion_culling:
             win, imgs = self._project_static_culled(sess, fov, shape, proj_shape, scale)
+        elif sess.bm is not None and self.mesh is not None:
+            kb, mr = self._kb(sess.bm, self._vis_bound(sess))
+            win, imgs = block_fused_visibility_images_sharded(
+                self.mesh, sess.bm, sess.masks["static"], sess.poses_inv[:K], sess.poses[:K],
+                fov, shape, proj_shape, k_blocks=kb, max_range=mr, scale=scale)
         elif sess.bm is not None:
             kb, mr = self._kb(sess.bm, self._vis_bound(sess))
             count_slots(kb * sess.bm.block_capacity * K)
             win, imgs = block_fused_visibility_images(
                 sess.bm, sess.masks["static"], sess.poses_inv[:K], sess.poses[:K],
                 fov, shape, proj_shape, k_blocks=kb, max_range=mr, scale=scale)
+        elif self.mesh is not None:
+            win, imgs = fused_visibility_images_sharded(
+                self.mesh, sess.map_xyz, sess.masks["static"], sess.poses_inv[:K],
+                fov, shape, proj_shape, scale=scale)
         else:
             win, imgs = fused_visibility_images(
                 sess.map_xyz, sess.masks["static"], sess.poses_inv[:K],
@@ -414,7 +428,7 @@ class Removerter:
     def _sweep(self, sess: RemovertSession, mask, fov, res):
         shape = rimg_shape(fov, res)
         K = sess.num_keyframes  # padded keyframes are masked but not free
-        if sess.bm is not None and self.cfg.use_occlusion_culling:
+        if sess.bm is not None and self.mesh is None and self.cfg.use_occlusion_culling:
             # per-(keyframe, block) footprint test against the scan images
             # replaces the range ball: strictly tighter and exact (slack
             # −thres for forward diffs); one cull a layout and resolution
@@ -435,11 +449,18 @@ class Removerter:
         if sess.bm is not None:
             bm = sess.bm._replace(mask=mask.reshape(sess.bm.mask.shape))
             kb, mr = self._kb(sess.bm, self._fwd_bound(sess))
+            args = (bm, sess.scans_xyz[:K], sess.scans_mask[:K], sess.poses_inv[:K],
+                    sess.poses[:K], fov, shape)
+            kw = dict(k_blocks=kb, max_range=mr, diff_threshold=self.cfg.diff_threshold,
+                      reverse=False)
+            if self.mesh is not None:
+                return block_sweep_discrepancy_sharded(self.mesh, *args, **kw)
             count_slots(kb * sess.bm.block_capacity * K)
-            return block_sweep_discrepancy(
-                bm, sess.scans_xyz[:K], sess.scans_mask[:K], sess.poses_inv[:K],
-                sess.poses[:K], fov, shape, k_blocks=kb, max_range=mr,
-                diff_threshold=self.cfg.diff_threshold, reverse=False)
+            return block_sweep_discrepancy(*args, **kw)
+        if self.mesh is not None:
+            return sweep_discrepancy_sharded(
+                self.mesh, sess.map_xyz, mask, sess.scans_xyz[:K], sess.scans_mask[:K],
+                sess.poses_inv[:K], fov, shape, self.cfg.diff_threshold, False)
         return sweep_discrepancy(
             sess.map_xyz, mask, sess.scans_xyz[:K], sess.scans_mask[:K],
             sess.poses_inv[:K], fov, shape, self.cfg.diff_threshold, False)
@@ -546,7 +567,7 @@ class Removerter:
             else:
                 n_cb = int(torch.any(cand.reshape(nb, bcap), dim=1).sum())
                 kb_eff = min(max(min(kb_t, ((n_cb + 127) // 128) * 128), 128), nb)
-            if cfg.use_occlusion_culling:
+            if cfg.use_occlusion_culling and self.mesh is None:
                 # per (keyframe, block) footprint test against the source
                 # images (slack −thres, or +kValidDiffUpperBound reversed);
                 # one cull over the full candidate set serves every repeat
@@ -561,10 +582,13 @@ class Removerter:
                     f"{'ND' if reverse else 'PD'} filter {sess.sess_type}")
                 if k_sel >= kb_eff:
                     sel_idx = sel_valid = None   # culling won nothing
+        # survivor counts per repeat drive the pow-2 shrink rebuilds and the
+        # empty-set exit; on a mesh the fixed loop runs, as in ltm
+        count_repeats = use_blocks and self.mesh is None
         for r in range(cfg.nd_pd_filter_repeats):
-            if use_blocks and n_cur == 0:
+            if count_repeats and n_cur == 0:
                 break   # nothing left to re-check (flagged ⊆ cur always)
-            if (dbm is not None and sel_idx is None and r > 0
+            if (count_repeats and dbm is not None and sel_idx is None and r > 0
                     and _delta_blocks(n_cur) < dbm.num_blocks):
                 built = _build_delta(cur, n_cur)
                 if built is not None:       # on overflow keep the old layout
@@ -583,6 +607,11 @@ class Removerter:
                     flagged = block_sweep_discrepancy_vs_images_presel(
                         bm_eff, cur_eff, imgs, source.poses_inv[:Ks], sel_idx, sel_valid,
                         fov, shape, diff_threshold=cfg.diff_threshold, reverse=reverse)
+                elif self.mesh is not None:
+                    flagged = block_sweep_discrepancy_vs_images_sharded(
+                        self.mesh, bm_eff, cur_eff, imgs, source.poses_inv[:Ks],
+                        source.poses[:Ks], fov, shape, k_blocks=kb_eff, max_range=mr_t,
+                        diff_threshold=cfg.diff_threshold, reverse=reverse)
                 else:
                     count_slots(kb_eff * bm_eff.block_capacity * Ks)
                     flagged = block_sweep_discrepancy_vs_images(
@@ -593,16 +622,20 @@ class Removerter:
                     # back to original map indices (a False pad row absorbs
                     # the sentinel slot)
                     flagged = cur & torch.cat([flagged, flagged.new_zeros(1)])[d_slots]
+            elif self.mesh is not None:
+                flagged = sweep_discrepancy_vs_images_sharded(
+                    self.mesh, sess.map_xyz, cur, imgs, source.poses_inv[:Ks], fov, shape,
+                    cfg.diff_threshold, reverse)
             else:
                 flagged = sweep_discrepancy_vs_images(
                     sess.map_xyz, cur, imgs, source.poses_inv[:Ks], fov, shape,
                     cfg.diff_threshold, reverse)
             weak = weak | flagged
             cur = cur & ~flagged
-            if use_blocks:
+            if count_repeats:
                 n_cur = int(cur.sum())
                 repeat_counts.append(n_cur)
-        if use_blocks:
+        if count_repeats:
             log.info("filter_strong %s %s: candidates per repeat %s",
                      sess.sess_type, "ND" if reverse else "PD", repeat_counts)
         return cur, weak
@@ -622,6 +655,9 @@ class Removerter:
                 return self._chunk_knn_finish(*st)
         if cfg.use_grid_knn:
             return self._grid_knn_stat(query_xyz, query_mask, target_xyz, target_mask)
+        if self.mesh is not None:
+            return knn_avg_sqdist_sharded(self.mesh, query_xyz, query_mask, target_xyz,
+                                          target_mask, k=cfg.num_knn_points, tile=8192)
         return chunked_knn_avg_sqdist(query_xyz, query_mask, target_xyz, target_mask,
                                       k=cfg.num_knn_points, tile=8192, query_chunk=16384)
 
@@ -691,10 +727,19 @@ class Removerter:
         extra[slots] = target_mask
         extra = extra[:flat]
         kb = min(cfg.chunk_knn_k_blocks, kbm.num_blocks)
-        res = chunk_knn_sqdists(query_xyz, query_mask, kbm, extra, clamp, k=cfg.num_knn_points,
-                                chunk=cfg.chunk_knn_chunk, k_blocks=kb,
-                                sort_cell=cfg.chunk_knn_sort_cell)
+        res = self._chunk_knn(query_xyz, query_mask, kbm, extra, clamp, k_blocks=kb)
         return res, kbm, extra, clamp, kb, query_xyz, query_mask, target_xyz, target_mask
+
+    def _chunk_knn(self, query_xyz, query_mask, kbm, extra, clamp, k_blocks):
+        """One chunked kNN call at the config's chunk, k and sort cell:
+        chunk-sharded on a mesh, else on the one device."""
+        cfg = self.cfg
+        args = (query_xyz, query_mask, kbm, extra, clamp)
+        kw = dict(k=cfg.num_knn_points, chunk=cfg.chunk_knn_chunk, k_blocks=k_blocks,
+                  sort_cell=cfg.chunk_knn_sort_cell)
+        if self.mesh is not None:
+            return chunk_knn_sqdists_sharded(self.mesh, *args, **kw)
+        return chunk_knn_sqdists(*args, **kw)
 
     def _chunk_knn_finish(self, res, kbm, extra, clamp, kb, query_xyz, query_mask,
                           target_xyz, target_mask):
@@ -718,9 +763,7 @@ class Removerter:
             escalated = idx
             idx_t = torch.from_numpy(idx).to(dev)
             sub_mask = query_mask[idx_t]
-            res2 = chunk_knn_sqdists(query_xyz[idx_t], sub_mask, kbm, extra, clamp,
-                                     k=cfg.num_knn_points, chunk=ch, k_blocks=kb2,
-                                     sort_cell=cfg.chunk_knn_sort_cell)
+            res2 = self._chunk_knn(query_xyz[idx_t], sub_mask, kbm, extra, clamp, k_blocks=kb2)
             bad2 = np.flatnonzero(res2.chunk_overflow.cpu().numpy())
             log.info("chunk kNN: %d/%d chunks escalated to k_blocks=%d (%d queries, "
                      "%d chunks still over)", bad.size, res.chunk_overflow.shape[0], kb2,

@@ -33,13 +33,13 @@ from torch.func import jacfwd, vmap
 from ltm_torch.core import se3
 from ltm_torch.core.config import LTSlamConfig
 from ltm_torch.device import resolve_device
+from ltm_torch.dist.mesh import mesh_from_config
 from ltm_torch.graph.factors import build_graph_data
 from ltm_torch.graph.solver import marginal_covariance, solve
 from ltm_torch.io.poses import write_kitti_poses
 from ltm_torch.io.sessions import SessionData
 from ltm_torch.kernels.voxel import voxel_downsample_representative_capped
 from ltm_torch.register.icp import icp_batch, icp_batch_compacted
-from ltm_torch.removert.pipeline import mesh_size
 from ltm_torch.retrieval import scancontext as sc_retrieval
 from ltm_torch.slam.session import SlamSession, assemble_submap, auto_scan_capacity
 from ltm_torch.utils import get_logger, stage_timer
@@ -61,15 +61,19 @@ class LTSlamResult:
 
 class LTSlam:
     """Central/query alignment, generalized to N sessions (session 0 is the
-    base).  ``device=None`` runs on the CUDA card; ``cfg.mesh_devices``
-    above one device raises until the multi-device paths are ported."""
+    base).  ``device=None`` runs on the CUDA card.  ``cfg.mesh_devices``
+    follows ``ltm``'s contract (``ltm_torch.dist.mesh_from_config``): on
+    one card it gives no mesh and the one-device path runs; a mesh of more
+    than one slot raises until LT-SLAM's sharded Scan Context, ICP farm and
+    solver are ported (the LT-SLAM mesh slice)."""
 
     def __init__(self, cfg: Optional[LTSlamConfig] = None, device=None):
         self.cfg = cfg or LTSlamConfig()
         self.device = resolve_device(device)
-        if mesh_size(self.cfg.mesh_devices, self.device) > 1:
-            raise NotImplementedError("mesh_devices is ported in a later slice (the "
-                                      "multi-device paths); unset it")
+        if mesh_from_config(self.cfg.mesh_devices, self.device) is not None:
+            raise NotImplementedError(
+                "LTSlam on a mesh of more than one slot (sharded Scan Context, ICP farm and "
+                "solver) is the LT-SLAM mesh slice, not ported yet; unset mesh_devices")
         # ICP iterations of every pair the farm ran, in order (diagnostics)
         self.icp_iterations: List[int] = []
 

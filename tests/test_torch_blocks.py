@@ -156,3 +156,73 @@ def test_block_sweep_discrepancy_vs_images(sessions, fused, reverse):
                                               ts.poses_inv[:K], ts.poses[:K], FOV, shape, **args)
     aff = _affected(np.asarray(bj.xyz).reshape(-1, 3), np.asarray(js.poses_inv), K, [shape])
     _assert_only_affected(dj, dt, aff)
+
+
+@pytest.fixture(scope="module")
+def keyframes(sessions):
+    """The session's rotated keyframe poses and its block budget at 20 m,
+    the same from either package's layout."""
+    js, ts, _ = sessions
+    K = js.num_keyframes
+    pinv, poses = np.array(js.poses_inv)[:K], np.array(js.poses)[:K]
+    kb = tb.required_k_blocks(ts.bm, poses[:, :3, 3], 20.0, round_to=8)
+    assert kb == jb.required_k_blocks(js.bm, poses[:, :3, 3], 20.0, round_to=8)
+    assert kb < js.bm.num_blocks
+    assert kb == tb.required_k_blocks_np(*(a.numpy() for a in (ts.bm.centers, ts.bm.radius,
+                                                              ts.bm.block_valid)),
+                                         poses[:, :3, 3], 20.0, round_to=8)
+    return pinv, poses, kb
+
+
+def _pixel_spread(aff, src_xyz, tgt_xyz, pose_inv, K, shape):
+    """Target points that share a ``shape`` pixel, in either package under
+    some keyframe, with an affected source point: a projected scan's image
+    can change there."""
+    out = np.zeros(len(tgt_xyz), bool)
+    for k in range(K):
+        pix = []
+        for xyz in (src_xyz, tgt_xyz):
+            lj = _j_apply_pose(jnp.asarray(xyz), jnp.asarray(pose_inv[k]))
+            lt = tp.apply_pose(torch.from_numpy(np.array(xyz)), torch.from_numpy(pose_inv[k]))
+            pix.append((np.asarray(_j_project(lj, FOV, shape)[0]),
+                        tp.spherical_project(lt, FOV, shape)[0].numpy()))
+        bad = np.union1d(pix[0][0][aff], pix[0][1][aff])
+        out |= np.isin(pix[1][0], bad) | np.isin(pix[1][1], bad)
+    return out
+
+
+@pytest.mark.parametrize("name", ["block_sweep_visibility", "block_projected_scan_images",
+                                  "block_sweep_discrepancy_projected"])
+def test_block_keyframe_sweeps(sessions, keyframes, name):
+    """The three block sweeps against ``ltm``'s under the session's rotated
+    poses and the module's rule: masks equal but at affected points, images
+    at no more than two pixels an affected point.  The projected scans'
+    winners reach the target through the image, so a target point in the
+    ``shape`` pixel of an affected source point counts as affected too."""
+    js, ts, _ = sessions
+    pinv, poses, kb = keyframes
+    K = js.num_keyframes
+    shape, proj = jp.rimg_shape(FOV, 2.5), jp.rimg_shape(FOV, 3.0)
+    rng = np.random.default_rng(4)
+    extra = rng.uniform(size=js.bm.num_blocks * js.bm.block_capacity) > 0.3
+    j = (jnp.asarray(extra), jnp.asarray(pinv), jnp.asarray(poses))
+    t = (torch.from_numpy(extra), torch.from_numpy(pinv), torch.from_numpy(poses))
+    kw = dict(k_blocks=kb, max_range=20.0)
+    xyz = np.asarray(js.bm.xyz).reshape(-1, 3)
+    aff = _affected(xyz, pinv, K, [shape, proj])
+    if name == "block_sweep_visibility":
+        ref = jb.block_sweep_visibility(js.bm, *j, FOV, proj, **kw)
+        got = tb.block_sweep_visibility(ts.bm, *t, FOV, proj, **kw)
+        return _assert_only_affected(ref, got, aff)
+    if name == "block_projected_scan_images":
+        ref = np.asarray(jb.block_projected_scan_images(js.bm, *j, FOV, shape, proj, **kw))
+        got = tb.block_projected_scan_images(ts.bm, *t, FOV, shape, proj, **kw).numpy()
+        assert got.shape == ref.shape and (got < tp.NO_POINT).sum() > 1000
+        assert (got != ref).sum() <= 2 * aff.sum()
+        return
+    # the map's other points as the target of the map's projected scans
+    ref = jb.block_sweep_discrepancy_projected(js.bm, jnp.asarray(~extra), js.bm, *j, FOV, shape,
+                                               proj, reverse=True, **kw)
+    got = tb.block_sweep_discrepancy_projected(ts.bm, torch.from_numpy(~extra), ts.bm, *t, FOV,
+                                               shape, proj, reverse=True, **kw)
+    _assert_only_affected(ref, got, aff | _pixel_spread(aff, xyz, xyz, pinv, K, shape))

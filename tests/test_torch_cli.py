@@ -20,7 +20,7 @@ from ltm.removert import Removerter, RemovertInput
 from ltm_torch.cli.ltremovert import main
 from ltm_torch.io.pcd import read_pcd
 from ltm_torch.removert import Removerter as TRemoverter
-from ltm_torch.removert.pipeline import mesh_size
+from ltm_torch.dist import mesh_from_config
 
 torch.set_num_threads(1)
 
@@ -82,14 +82,27 @@ def test_missing_paths_exit_2_and_name_the_field(sessions, capsys):
     assert "central_sess_pose_path required" in capsys.readouterr().err
 
 
-def test_mesh_devices(sessions, tmp_path):
+def test_mesh_devices(sessions, tmp_path, monkeypatch):
+    """``--mesh-devices`` reaches the driver: -1 (the default) is one CPU
+    device, 2 a mesh of two CPU slots (the mesh run itself is
+    tests/test_torch_removert_mesh.py's)."""
     cpu = torch.device("cpu")
-    assert mesh_size(-1, cpu) == 1 and mesh_size(None, cpu) == 1 and mesh_size(1, cpu) == 1
-    assert mesh_size(-1, torch.device("cuda")) == torch.cuda.device_count()
+    assert all(mesh_from_config(n, cpu) is None for n in (-1, None, 0, 1))
     _, config, flags = sessions
-    with pytest.raises(NotImplementedError, match="mesh_devices"):
-        main(flags + ["--config", config, "--out", str(tmp_path), "--mesh-devices", "2",
-                      "--device", "cpu"])
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def run(self, *args, **kwargs):
+        seen.append(None if self.mesh is None else self.mesh.size)
+        raise Stop   # before the pipeline runs
+
+    monkeypatch.setattr(TRemoverter, "run", run)
+    for extra in ([], ["--mesh-devices", "2"]):
+        with pytest.raises(Stop):
+            main(flags + ["--config", config, "--out", str(tmp_path), "--device", "cpu"] + extra)
+    assert seen == [None, 2]
 
 
 def test_cli_artifact_tree_matches_ltm(sessions, monkeypatch):

@@ -95,3 +95,82 @@ def test_apply_pose_within_one_ulp(rng):
     mag = (np.abs(xyz) @ np.abs(Tinv[:3, :3]).T + np.abs(Tinv[:3, 3])).astype(np.float32)
     assert np.all(np.abs(a - b) <= np.spacing(mag))
     print("apply_pose: %.2g of coordinates differ" % (a != b).mean())
+
+
+def _translations(rng, k=3):
+    """Keyframe poses that only translate: ``apply_pose`` then adds the
+    offset alone, so both packages see the same local points and the
+    sweeps' masks and images must be bit-equal."""
+    pinv = np.tile(np.eye(4, dtype=np.float32), (k, 1, 1))
+    pinv[:, :3, 3] = rng.uniform(-20, 20, (k, 3)).astype(np.float32) * [1, 1, 0.05]
+    return pinv
+
+
+def _rotations(rng, k=3):
+    """Keyframe poses that yaw, tilt slightly and translate: ``apply_pose``
+    may round differently in the two packages, and the sweeps are held to
+    the affected-point rule of tests/test_torch_blocks.py."""
+    pinv = _translations(rng, k)
+    for T, yaw, tilt in zip(pinv, rng.uniform(-np.pi, np.pi, k), rng.uniform(-0.05, 0.05, (k, 2))):
+        c, s = np.cos(yaw), np.sin(yaw)
+        rz = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+        rx = np.array([[1, 0, 0], [0, np.cos(tilt[0]), -np.sin(tilt[0])],
+                       [0, np.sin(tilt[0]), np.cos(tilt[0])]])
+        ry = np.array([[np.cos(tilt[1]), 0, np.sin(tilt[1])], [0, 1, 0],
+                       [-np.sin(tilt[1]), 0, np.cos(tilt[1])]])
+        T[:3, :3] = rz @ rx @ ry
+    return pinv
+
+
+def _sweep_case(rng, name, poses):
+    xyz, mask = _cloud(rng, 20000)
+    src = (xyz[:12000] * rng.uniform(0.97, 1.03, (12000, 1))).astype(np.float32)
+    smask = rng.uniform(size=12000) > 0.05
+    pinv = poses(rng)
+    if name == "sweep_visibility":
+        args = (xyz, mask, pinv)
+        static = (FOV, PROJ)
+    elif name == "projected_scan_images":
+        args = (src, smask, pinv)
+        static = (FOV, SHAPE, PROJ)
+    else:
+        args = (xyz, mask, src, smask, pinv)
+        static = (FOV, SHAPE, PROJ)
+    kw = dict(diff_threshold=0.1, reverse=True) if name == "sweep_discrepancy_projected" else {}
+    ref = np.asarray(getattr(jp, name)(*(jnp.asarray(a) for a in args), *static, **kw))
+    got = getattr(tp, name)(*(torch.from_numpy(a) for a in args), *static, **kw).numpy()
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    if got.dtype == bool:
+        assert 0 < got.sum() < got.size
+    else:
+        assert (got < tp.NO_POINT).sum() > 1000
+    return xyz, src, pinv, ref, got
+
+
+@pytest.mark.parametrize("name", ["sweep_visibility", "projected_scan_images",
+                                  "sweep_discrepancy_projected"])
+def test_keyframe_sweeps_rotated(rng, name):
+    """The three keyframe sweeps under rotated poses, against ``ltm`` under
+    the affected-point rule: masks equal but at affected points, images at
+    no more than two pixels an affected source point; a target point in the
+    ``SHAPE`` pixel of an affected source point counts as affected too."""
+    from test_torch_blocks import _affected, _assert_only_affected, _pixel_spread
+
+    xyz, src, pinv, ref, got = _sweep_case(rng, name, _rotations)
+    K = len(pinv)
+    if name == "sweep_visibility":
+        return _assert_only_affected(ref, torch.from_numpy(got), _affected(xyz, pinv, K, [PROJ]))
+    aff_src = _affected(src, pinv, K, [SHAPE, PROJ])
+    if name == "projected_scan_images":
+        assert (got != ref).sum() <= 2 * aff_src.sum()
+        print(f"images: {(got != ref).sum()} pixels differ, {aff_src.sum()} affected points")
+        return
+    aff = _affected(xyz, pinv, K, [SHAPE]) | _pixel_spread(aff_src, src, xyz, pinv, K, SHAPE)
+    _assert_only_affected(ref, torch.from_numpy(got), aff)
+
+
+@pytest.mark.parametrize("name", ["sweep_visibility", "projected_scan_images",
+                                  "sweep_discrepancy_projected"])
+def test_keyframe_sweeps_bit_equal(rng, name):
+    *_, ref, got = _sweep_case(rng, name, _translations)
+    np.testing.assert_array_equal(got, ref)

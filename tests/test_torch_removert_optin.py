@@ -10,7 +10,9 @@
   * ``use_grid_knn`` (slow: the clamped grid scores every query of a cell
     against 27 padded cells, ~300 s at one thread here): the 14 masks equal
     the brute-force port run's;
-  * ``mesh_devices > 1`` still raises.
+  * on a mesh ``use_occlusion_culling`` leaves the culled branches and
+    takes the sharded ones, as ``ltm`` does, with the same 14 masks; LT-SLAM's
+    mesh still raises.
 """
 
 import dataclasses
@@ -57,13 +59,18 @@ def default_port(bundle):
     return _port(bundle)[1]
 
 
+@pytest.fixture(scope="module")
+def culled_port(bundle):
+    return _port(bundle, use_occlusion_culling=True)
+
+
 def _assert_masks_equal(a, b):
     for name in MASK_NAMES:
         assert torch.equal(a.masks[name], b.masks[name]), name
 
 
-def test_occlusion_culled_masks_equal_unculled(bundle, default_port):
-    rm, culled = _port(bundle, use_occlusion_culling=True)
+def test_occlusion_culled_masks_equal_unculled(culled_port, default_port):
+    rm, culled = culled_port
     _assert_masks_equal(culled, default_port)
     sweeps = {st["sweep"].split()[0] for st in rm.occlusion_stats}
     assert {"fwd", "project_static", "ND", "PD"} <= sweeps, sweeps
@@ -105,6 +112,18 @@ def test_grid_knn_masks_equal_brute(bundle, default_port):
     _assert_masks_equal(grid, default_port)
 
 
-def test_mesh_still_raises(bundle):
+def test_mesh_still_raises(bundle, culled_port):
+    """LT-SLAM's mesh (the next slice) still raises.  LT-removert with
+    ``use_occlusion_culling`` on 3 CPU slots (3 pads the keyframe and map
+    axes) leaves the culled branches, as ``ltm`` does: no sweep is culled,
+    the sharded forward, project-static and strong/weak sweeps run, and
+    the 14 masks equal the one-device culled run's."""
+    from ltm_torch.core.config import LTSlamConfig
+    from ltm_torch.slam import LTSlam
+
     with pytest.raises(NotImplementedError, match="mesh_devices"):
-        _port(bundle, mesh_devices=2)
+        LTSlam(LTSlamConfig(mesh_devices=2), device="cpu")
+    rm, on_mesh = _port(bundle, use_occlusion_culling=True, mesh_devices=3)
+    assert rm.mesh.size == 3
+    assert rm.occlusion_stats == []
+    _assert_masks_equal(on_mesh, culled_port[1])
