@@ -6,7 +6,7 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``ltm_torch/csrc`` (nvcc,
-sm_90a), then runs thirteen phases, each of which raises on failure:
+sm_90a), then runs fourteen phases, each of which raises on failure:
 
   1. device and build: the card, PyTorch/CUDA versions, kernel build time,
      the ``-Xptxas -v`` report of every source, and the 2-NN scan's hot
@@ -55,10 +55,11 @@ sm_90a), then runs thirteen phases, each of which raises on failure:
      accepted loop set, central poses within 0.01 m;
   8. LT-SLAM at full width: ``bench.py:_slam_bench``'s workload (two
      sessions x 500 keyframes x 8 000 points, ``LTSlamConfig()``), a
-     warm-up and two timed runs (ATE RMSE ≤ 0.10 m), one run that times
+     warm-up and one timed run (ATE RMSE ≤ 0.10 m), one run that times
      each call of the path's hot loops (the ICP 1-NN, the Scan Context
      distance, the polar-bin scatter-max, the tridiagonal sweeps) with a
-     sync on each side, the largest 1-NN call against its bound and
+     sync on each side (outside the PCG's graph replays), the largest
+     1-NN call against its bound and
      ``torch.cdist``, one run with 10 RS loops (ATE ≤ 0.10 m) and one at
      ``odom_noise=4e-3`` (ATE ≤ 0.25 m);
   9. ``python -m ltm_torch.cli.ltmapper`` in a subprocess on session
@@ -98,14 +99,23 @@ sm_90a), then runs thirteen phases, each of which raises on failure:
      ulps from the plain version); the whole-map path on phase 3's
      workload, mesh against one device and card against CPU; the run once
      more through a one-process NCCL group (``initialize_multihost``); and
-     phase 10's cut chain on 2 slots, its sets the one-device chain's.
+     phase 10's cut chain on 2 slots, its sets the one-device chain's;
+ 14. LT-SLAM on a mesh of 4 slots of the card: ``LTSlam.run`` at phase 8's
+     full width with the mesh assigned to ``LTSlam.mesh`` (schur), its
+     accepted loop set phase 8's, central poses within 0.01 m of phase 8's,
+     ATE ≤ 0.10 m, its stage walls beside phase 8's; the sharded Scan
+     Context distance, ICP farm and solver (both modes) at those shapes
+     against their one-device functions, and the solver's collectives an
+     LM step; phase 7's cut workload on 4 slots, card against CPU; and
+     ``solve_sharded`` on 2 slots through a one-process NCCL group, bit for
+     bit the same call without a group.
 
 Every timed call whose targets split is also run and timed with the plan
 held at one split, which must give the same bits.
 
 It prints the ``{"kernels": [...]}`` line, the ``{"slam": {...}}`` line
-(phases 7-9), the ``{"lifelong": ..., "optin": ..., "headline": ..., "mesh": ...}``
-line (phases 10-13), then the card's name and power limit, and as its last line
+(phases 7-9), the ``{"lifelong": ..., "optin": ..., "headline": ..., "mesh": ...,
+"slam_mesh": ...}`` line (phases 10-14), then the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.  The LT-SLAM path runs no hand kernel:
 its hot loops are PyTorch ops, measured in phase 8.  Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero
@@ -115,6 +125,7 @@ and prints no result.  The port imports neither ``jax`` nor ``ltm``.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import faulthandler
 import json
@@ -1144,8 +1155,8 @@ class HotLoops:
             if name == "icp_1nn" and (self.largest_1nn is None
                                       or args[0].shape[0] > self.largest_1nn[0][0].shape[0]):
                 self.largest_1nn = (args, kwargs)
-            if not self.timed:
-                return fn(*args, **kwargs)
+            if not self.timed or torch.cuda.is_current_stream_capturing():
+                return fn(*args, **kwargs)       # a captured call runs in the graph's replays
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
@@ -1213,19 +1224,49 @@ def nn_bound_and_library(args, kwargs):
             "library_ms": lib_ms, "library": "torch.cdist + min, 4 lanes a call"}
 
 
+def slam_run(cfg, b, hot=None, mesh=None):
+    """One ``LTSlam.run`` of bundle ``b`` on the card (with ``mesh``
+    assigned to ``LTSlam.mesh``): (slam, result, stats: wall, keyframes/s,
+    ATE, loops, ICP iterations, host reads, synced stage walls)."""
+    import torch
+
+    from ltm_torch.slam import LTSlam
+    from ltm_torch.utils import host_reads, reset_host_reads, reset_stage_times, stage_times
+
+    n_kf = len(b["central"].site_poses) + len(b["query"].site_poses)
+    reset_stage_times()
+    reset_host_reads()
+    torch.cuda.synchronize()
+    slam = LTSlam(cfg, device="cuda")
+    if mesh is not None:
+        slam.mesh = mesh
+    t0 = time.perf_counter()
+    res = slam.run(b["central"].data, b["query"].data)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    it = np.asarray(slam.icp_iterations)
+    return slam, res, {
+        "wall_s": wall, "keyframes_per_s": n_kf / wall, "ate_rmse_m": slam_ate(res, b),
+        "sc_loops": res.num_sc_loops, "rs_loops": res.num_rs_loops, "icp_pairs": len(it),
+        "icp_iterations_min_p50_p90_max": [int(it.min()), float(np.median(it)),
+                                           float(np.percentile(it, 90)), int(it.max())]
+        if len(it) else None,
+        "host_reads": host_reads(), "stages_s": stage_times(),
+        "hot_loop_calls": dict(hot.calls) if hot else None}
+
+
 def phase_slam_full_width():
     """Phase 8: ``bench.py:_slam_bench``'s workload (500 keyframes a session,
-    ~1 000 pose-graph nodes, ``LTSlamConfig()``): a warm-up, two timed runs
-    (ATE ≤ 0.10 m), an instrumented run that times each hot-loop call with a
-    sync on each side, one run with 10 RS loops (ATE ≤ 0.10 m) and one at
-    ``odom_noise=4e-3`` (ATE ≤ 0.25 m)."""
+    ~1 000 pose-graph nodes, ``LTSlamConfig()``): a warm-up, one timed run
+    (ATE ≤ 0.10 m), an instrumented run that times each hot-loop call outside
+    the PCG's graph replays with a sync on each side, one run with 10 RS
+    loops (ATE ≤ 0.10 m) and one at
+    ``odom_noise=4e-3`` (ATE ≤ 0.25 m).  Returns the summary and the last
+    timed run (``slam``, ``res``, ``stats``: phase 14's reference)."""
     import torch
 
     from ltm_torch.core.config import LTSlamConfig
-    from ltm_torch.graph import solver
     from ltm_torch.io.synthetic import make_two_sessions
-    from ltm_torch.slam import LTSlam
-    from ltm_torch.utils import host_reads, reset_host_reads, reset_stage_times, stage_times
 
     os.environ["LTM_SYNC_STAGES"] = "1"
     t0 = time.perf_counter()
@@ -1233,32 +1274,13 @@ def phase_slam_full_width():
     n_kf = 2 * SLAM_WIDTH["num_keyframes"]
     log(f"[8] workload made in {time.perf_counter() - t0:.1f} s")
 
-    def one_run(cfg, b, hot=None):
-        reset_stage_times()
-        reset_host_reads()
-        torch.cuda.synchronize()
-        slam = LTSlam(cfg, device="cuda")
-        t0 = time.perf_counter()
-        res = slam.run(b["central"].data, b["query"].data)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        it = np.asarray(slam.icp_iterations)
-        return res, {"wall_s": wall, "keyframes_per_s": n_kf / wall, "ate_rmse_m": slam_ate(res, b),
-                     "sc_loops": res.num_sc_loops, "rs_loops": res.num_rs_loops,
-                     "icp_pairs": len(it),
-                     "icp_iterations_min_p50_p90_max": [int(it.min()), float(np.median(it)),
-                                                        float(np.percentile(it, 90)), int(it.max())]
-                     if len(it) else None,
-                     "host_reads": host_reads(), "stages_s": stage_times(),
-                     "hot_loop_calls": dict(hot.calls) if hot else None}
-
     runs = []
-    for i in range(3):                          # run 0 warms up
+    for i in range(2):                          # run 0 warms up
         if i == 1:
             torch.cuda.reset_peak_memory_stats()
         hot = HotLoops()
         try:
-            res, st = one_run(LTSlamConfig(), bundle, hot)
+            slam, res, st = slam_run(LTSlamConfig(), bundle, hot)
         finally:
             hot.restore()
         st["run"] = i
@@ -1269,34 +1291,31 @@ def phase_slam_full_width():
         if res.num_sc_loops <= 0:
             raise AssertionError("full width: no SC loop accepted")
     peak = torch.cuda.max_memory_allocated()
+    ref = {"slam": slam, "res": res, "stats": runs[-1], "bundle": bundle}
 
-    hot = HotLoops(timed=True)
-    solver.CUDA_GRAPHS = False            # each sweep eagerly, so a sync can bracket it
+    hot = HotLoops(timed=True)     # the PCG replays its graph: the sweeps run eagerly outside it
     try:
-        _, inst = one_run(LTSlamConfig(), bundle, hot)
+        _, _, inst = slam_run(LTSlamConfig(), bundle, hot)
     finally:
         hot.restore()
-        solver.CUDA_GRAPHS = True
     optimize_s = sum(v for k, v in inst["stages_s"].items() if k.startswith("ltslam.optimize."))
-    tri_s = hot.seconds["tridiag_factor"] + hot.seconds["tridiag_apply"]
     loops = {name: {"calls": hot.calls[name], "s": hot.seconds[name],
                     "ms_per_call": hot.seconds[name] / hot.calls[name] * 1e3 if hot.calls[name] else None,
                     "bound_ms_per_call": hot.bound_s[name] / hot.calls[name] * 1e3 if hot.calls[name] else None}
              for name in hot.calls}
     nn = nn_bound_and_library(*hot.largest_1nn)
-    log(f"[8] instrumented run (a sync around each hot-loop call, PCG without CUDA graphs): "
-        f"wall {inst['wall_s']:.3f} s, optimize {optimize_s:.3f} s, "
-        f"{json.dumps(loops)}; tridiagonal share of ltslam.optimize.*: {tri_s / optimize_s:.4f}")
+    log(f"[8] instrumented run (a sync around each hot-loop call outside the PCG's graph "
+        f"replays): wall {inst['wall_s']:.3f} s, optimize {optimize_s:.3f} s, {json.dumps(loops)}")
     log(f"[8] largest 1-NN call: {json.dumps(nn)}")
 
     cfg = LTSlamConfig()
     cfg.num_rs_loops_upper_bound = 10
-    res, rs = one_run(cfg, bundle)
+    _, res, rs = slam_run(cfg, bundle)
     log(f"[8] RS loops (num_rs_loops_upper_bound=10): {json.dumps(rs)}")
     if rs["ate_rmse_m"] > ATE_BOUND or res.num_rs_loops <= 0:
         raise AssertionError(f"RS run: ATE {rs['ate_rmse_m']} m, {res.num_rs_loops} RS loops")
     noisy_b = make_two_sessions(odom_noise=4e-3, **SLAM_WIDTH)
-    _, noisy = one_run(LTSlamConfig(), noisy_b)
+    _, _, noisy = slam_run(LTSlamConfig(), noisy_b)
     log(f"[8] odom_noise=4e-3: {json.dumps(noisy)}")
     if noisy["ate_rmse_m"] > ATE_NOISY_BOUND:
         raise AssertionError(f"noisy run: ATE {noisy['ate_rmse_m']} m > {ATE_NOISY_BOUND} m")
@@ -1316,12 +1335,11 @@ def phase_slam_full_width():
         "hot_loops_instrumented": loops,
         "instrumented_wall_s": inst["wall_s"],
         "instrumented_optimize_s": optimize_s,
-        "tridiag_share_of_optimize_eager": tri_s / optimize_s,
         "largest_1nn_call": nn,
         "max_memory_allocated_bytes": peak,
     }
     log(f"[8] {json.dumps(summary)}")
-    return summary
+    return summary, ref
 
 
 def phase_slam_cli(device="cuda"):
@@ -2458,6 +2476,331 @@ def phase_mesh(cfg=None, brute_masks=None, phase5_run=None, lifelong_in=None):
     return summary
 
 
+SOLVE_GATE = dict(pose_log=1e-3, cost_rtol=0.05)   # tests/test_dist.py:76-80 (ltm's mesh bounds)
+ICP_FITNESS_RTOL = 1e-3                             # tests/test_dist.py:229
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms: ``index_add_`` on the card then
+    adds in a fixed order instead of by atomics, so a solve repeats bit
+    for bit (ops without such an algorithm only warn)."""
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def counted_collectives(fn):
+    """(fn's result, {collective: calls}) with the sharded solver's
+    ``concat`` and ``reduce_sum`` counted."""
+    from ltm_torch.dist import solver as dsolver
+
+    counts = {"concat": 0, "reduce_sum": 0}
+    saved = {name: getattr(dsolver, name) for name in counts}
+
+    def counting(name):
+        def call(*args, **kwargs):
+            counts[name] += 1
+            return saved[name](*args, **kwargs)
+        return call
+
+    for name in counts:
+        setattr(dsolver, name, counting(name))
+    try:
+        return fn(), counts
+    finally:
+        for name, f in saved.items():
+            setattr(dsolver, name, f)
+
+
+def timed_solve(fn):
+    """(poses, SolveInfo, seconds) of a solve on the card."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    poses, info = fn()
+    torch.cuda.synchronize()
+    return poses, info, time.perf_counter() - t0
+
+
+def pose_log_gap(a, b) -> float:
+    from ltm_torch.core import se3
+
+    return float(se3.log(se3.between(a, b)).abs().max())
+
+
+def solve_pair(tag, g, mesh, cfg, one, pose_gate=True):
+    """``solve_sharded`` on ``mesh`` against ``one``, the one-device
+    ``timed_solve`` of the same graph: both walls, LM steps and CG
+    residuals, the largest |se3 log(between)|, held to ``SOLVE_GATE`` (the
+    final cost only, with ``pose_gate=False``); the sharded run's
+    collectives."""
+    from ltm_torch.dist import solve_sharded
+
+    (poses, info, secs), colls = counted_collectives(
+        lambda: timed_solve(lambda: solve_sharded(g, mesh, cfg)))
+    one_poses, info_one, one_s = one
+    err = pose_log_gap(one_poses, poses)
+    cost, cost_one = float(info.cost_final), float(info_one.cost_final)
+    st = {"mode": cfg.dist_mode, "vars": g.num_vars, "one_device_s": one_s, "sharded_s": secs,
+          "lm_steps": [info_one.iterations, info.iterations],
+          "cg_residual": [float(info_one.cg_residual), float(info.cg_residual)],
+          "cost_final": [cost_one, cost], "max_pose_log": err, "pose_gated": pose_gate,
+          "collectives": colls}
+    log(f"[14a] solve_sharded {tag}: {json.dumps(st)}")
+    if not ((err < SOLVE_GATE["pose_log"] or not pose_gate)
+            and abs(cost - cost_one) <= SOLVE_GATE["cost_rtol"] * abs(cost_one)):
+        raise AssertionError(f"mesh solve {tag}: {json.dumps(st)}")
+    return st
+
+
+def solver_pairs(tag, g, mesh, modes, pose_gate=True):
+    """``solve_pair`` in each mode ({mode: SolverConfig}) against one
+    one-device solve, with deterministic algorithms; and the one-device
+    solve once more without them, against that solve (its own spread on
+    the card: atomic adds in a varying order)."""
+    from ltm_torch.graph import solve
+
+    cfg = next(iter(modes.values()))
+    with deterministic():
+        one = timed_solve(lambda: solve(g, cfg))
+        out = {mode: solve_pair(f"{mode}, {tag}", g, mesh, m, one, pose_gate)
+               for mode, m in modes.items()}
+    again, info, _ = timed_solve(lambda: solve(g, cfg))
+    out["one_device_repeat"] = {"lm_steps": [one[1].iterations, info.iterations],
+                                "max_pose_log": pose_log_gap(one[0], again)}
+    log(f"[14a] one-device solve of {tag} without deterministic algorithms: "
+        f"{json.dumps(out['one_device_repeat'])}")
+    return out
+
+
+def collectives_per_step(g, mesh, cfg, iterations=(5, 20)):
+    """Collectives of one LM step (``cg_tol`` 0: CG runs every iteration
+    it may; PCG eager, so each iteration's calls are seen, where a graph
+    replay repeats the captured ones) at two ``cg_iterations``: the schur
+    step's count must not grow, the all-reduce step's grows by one an
+    iteration."""
+    from ltm_torch.dist import solve_sharded
+    from ltm_torch.graph import solver
+
+    out = {}
+    solver.CUDA_GRAPHS = False
+    try:
+        for it in iterations:
+            one_step = dataclasses.replace(cfg, max_outer_iterations=1, cg_iterations=it,
+                                           cg_tol=0.0)
+            _, counts = counted_collectives(lambda: solve_sharded(g, mesh, one_step))
+            counts["reduce_sum"] -= 1                        # the initial cost
+            out[it] = counts
+    finally:
+        solver.CUDA_GRAPHS = True
+    a, b = (out[it] for it in iterations)
+    want = 0 if cfg.dist_mode == "schur" else iterations[1] - iterations[0]
+    if b["reduce_sum"] - a["reduce_sum"] != want or a["concat"] != b["concat"]:
+        raise AssertionError(f"{cfg.dist_mode}: collectives a step {out}")
+    return out
+
+
+def icp_pair(mesh, args, kwargs):
+    """``icp_batch_sharded`` on a chunk of ICP lanes against the one-device
+    ``icp_batch``: on each shard's lanes bit for bit (what the sharding
+    itself may change), and on the whole chunk with the fitness within
+    ``ICP_FITNESS_RTOL``.  The card's sums group by the batch's shape, so
+    the one-device function's transforms move between batchings of the
+    same lanes: the transform gap to the whole chunk is reported beside
+    that of one lane a call (not gated, see PERF.md); both walls."""
+    import torch
+
+    from ltm_torch.dist.mesh import local_shards
+    from ltm_torch.dist.sharding import icp_batch_sharded
+    from ltm_torch.register.icp import ICPResult, icp_batch
+
+    held = []
+    one_ms = cuda_ms(lambda: held.append(icp_batch(*args, **kwargs)), reps=1)
+    ms = cuda_ms(lambda: held.append(icp_batch_sharded(mesh, *args, **kwargs)), reps=1)
+    one, got = held
+    b = args[0].shape[0]
+    pad = (-b) % mesh.size
+    lanes = [torch.cat([t, t[-1:].expand((pad,) + tuple(t.shape[1:]))]) for t in args]
+    shards = [icp_batch(*(t[a:e] for t in lanes), **kwargs)
+              for _, a, e in local_shards(mesh, b + pad)]
+    per_shard = ICPResult(*(torch.cat(f)[:b] for f in zip(*shards)))
+    singles = ICPResult(*(torch.cat(f) for f in zip(*(
+        icp_batch(*(t[i:i + 1] for t in args), **kwargs) for i in range(b)))))
+    st = {"lanes": b, "one_device_ms": one_ms, "sharded_ms": ms,
+          "per_shard_bit_equal": all(torch.equal(x, y) for x, y in zip(got, per_shard)),
+          "max_fitness_rel_err": float(((one.fitness - got.fitness).abs()
+                                        / one.fitness.abs().clamp(min=1e-30)).max()),
+          "max_transform_gap_whole_chunk": float((one.transform - got.transform).abs().max()),
+          "one_device_lane_a_call_transform_gap":
+              float((one.transform - singles.transform).abs().max()),
+          "iterations": {"whole_chunk": one.iterations.tolist(), "sharded": got.iterations.tolist(),
+                         "lane_a_call": singles.iterations.tolist()}}
+    log(f"[14a] icp_batch_sharded: {json.dumps(st)}")
+    if not st["per_shard_bit_equal"] or st["max_fitness_rel_err"] > ICP_FITNESS_RTOL:
+        raise AssertionError(f"icp_batch_sharded: {json.dumps(st)}")
+    return st
+
+
+def phase_slam_mesh(full=None):
+    """Phase 14: LT-SLAM on a mesh of ``MESH_SLOTS`` slots of the one card
+    (``make_mesh([cuda:0] * 4)`` assigned to ``LTSlam.mesh``).  (b)
+    ``LTSlam.run`` at phase 8's full width on the mesh (schur), one run
+    that records its first ICP chunk: the accepted SC loop set of phase
+    8's one-device run, central poses within 0.01 m of it, ATE ≤
+    ``ATE_BOUND``; its wall and stage walls beside phase 8's.  (a) each
+    sharded function at those shapes against its one-device function:
+    ``sc_distance_sharded`` on the 500 × 500 descriptors (distance within
+    1e-5, shifts equal), ``icp_batch_sharded`` on the recorded chunk
+    (``icp_pair``), ``solve_sharded`` in both modes on phase 8's final
+    graph and on phase 7's ((c)'s card run), each against the one-device
+    solve (``solver_pairs``: the final cost on both graphs, the poses on
+    phase 7's; phase 8's graph pins its poses only to ~1e-3, as the
+    one-device solve repeated shows), and the collectives an LM step at
+    two ``cg_iterations``.  (c) phase 7's cut workload on 4 slots, card
+    against CPU under phase 7's rule.  (d) a one-process NCCL group:
+    ``solve_sharded`` on 2 slots through it equals the same call without a
+    group bit for bit on phase 7's graph (deterministic algorithms in
+    both).  ``full`` is
+    phase 8's reference run; without it (a call of this phase alone) one
+    one-device run gives it."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    import ltm_torch.slam.pipeline as pipe
+    from ltm_torch.core.config import LTSlamConfig
+    from ltm_torch.dist import Mesh, initialize_multihost, make_mesh, solve_sharded
+    from ltm_torch.dist.sharding import icp_batch_sharded, sc_distance_sharded
+    from ltm_torch.io.synthetic import make_two_sessions
+    from ltm_torch.retrieval.scancontext import sc_distance_matrix
+    from ltm_torch.slam import LTSlam
+
+    os.environ["LTM_SYNC_STAGES"] = "1"
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    if full is None:
+        bundle = make_two_sessions(odom_noise=5e-4, **SLAM_WIDTH)
+        slam, res, stats = slam_run(LTSlamConfig(), bundle)
+        full = {"slam": slam, "res": res, "stats": stats, "bundle": bundle}
+    bundle = full["bundle"]
+    mesh = make_mesh([dev] * MESH_SLOTS)
+
+    # (b) LTSlam.run on the mesh, recording its first ICP chunk
+    chunk = []
+
+    def recording(m, *args, **kwargs):
+        if not chunk:
+            chunk.append((args, kwargs))
+        return icp_batch_sharded(m, *args, **kwargs)
+
+    pipe.icp_batch_sharded = recording
+    try:
+        slam, res, run_b = slam_run(LTSlamConfig(), bundle, mesh=mesh)
+    finally:
+        pipe.icp_batch_sharded = icp_batch_sharded
+    one_slam, one_res = full["slam"], full["res"]
+    dmax = max(float(np.abs(res.central_poses[n][:, :3, 3]
+                            - one_res.central_poses[n][:, :3, 3]).max()) for n in res.central_poses)
+    log(f"[14b] {json.dumps(run_b)}; central poses {dmax} m from phase 8's")
+    if loop_set(slam) != loop_set(one_slam) or not loop_set(slam):
+        raise AssertionError(f"mesh run: {len(loop_set(slam))} loops, phase 8 "
+                             f"{len(loop_set(one_slam))}; the sets differ")
+    if dmax > 0.01 or run_b["ate_rmse_m"] > ATE_BOUND:
+        raise AssertionError(f"mesh run: central poses {dmax} m from phase 8's, "
+                             f"ATE {run_b['ate_rmse_m']} m")
+
+    # (a) each sharded function against its one-device function
+    sc_cfg = slam.cfg.scan_context
+    sc_kw = dict(full_shift_search=sc_cfg.full_shift_search, search_ratio=sc_cfg.search_ratio)
+    qd, td = slam.sessions[1].descriptors, slam.sessions[0].descriptors
+    held = []
+    sc_one_ms = cuda_ms(lambda: held.append(sc_distance_matrix(qd, td, **sc_kw)), reps=3)
+    sc_ms = cuda_ms(lambda: held.append(sc_distance_sharded(mesh, qd, td, **sc_kw)), reps=3)
+    (d1, s1), (d2, s2) = held[0], held[-1]
+    sc = {"shape": [qd.shape[0], td.shape[0]], "one_device_ms": sc_one_ms, "sharded_ms": sc_ms,
+          "max_abs_err": float((d1 - d2).abs().max()), "shifts_differ": int((s1 != s2).sum())}
+    log(f"[14a] sc_distance_sharded: {json.dumps(sc)}")
+    if sc["max_abs_err"] > 1e-5 or sc["shifts_differ"]:
+        raise AssertionError(f"sc_distance_sharded: {json.dumps(sc)}")
+    icp = icp_pair(mesh, *chunk[0])
+    # the solver at full width: both modes against the one-device solve with
+    # deterministic algorithms, beside that solve repeated without them
+    g = one_slam._last_graph
+    solver_cfg = LTSlamConfig().solver
+    modes = {mode: dataclasses.replace(solver_cfg, dist_mode=mode)
+             for mode in ("schur", "allreduce")}
+    solves = {"phase8_graph": solver_pairs("phase 8's graph", g, mesh, modes, pose_gate=False)}
+    for mode, cfg in modes.items():
+        solves[mode + "_collectives_per_step"] = collectives_per_step(g, mesh, cfg)
+
+    # (c) phase 7's cut workload on 4 slots, card against CPU
+    cut = cut_bundle(bundle, *SLAM_CUT)
+    cut_runs = {}
+    for where in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        s_c = LTSlam(LTSlamConfig(), device=where)
+        s_c.mesh = make_mesh([torch.device(where)] * MESH_SLOTS)
+        r_c = s_c.run(cut["central"].data, cut["query"].data)
+        cut_runs[where] = (s_c, r_c, time.perf_counter() - t0)
+    (s_cpu, r_cpu, t_cpu), (s_gpu, r_gpu, t_gpu) = cut_runs["cpu"], cut_runs["cuda"]
+    cut_d = max(float(np.abs(r_cpu.central_poses[n][:, :3, 3]
+                             - r_gpu.central_poses[n][:, :3, 3]).max()) for n in r_cpu.central_poses)
+    cut_st = {"keyframes": list(SLAM_CUT), "slots": MESH_SLOTS, "loops": len(loop_set(s_gpu)),
+              "max_central_pose_diff_m": cut_d, "cpu_s": t_cpu, "cuda_s": t_gpu}
+    log(f"[14c] {json.dumps(cut_st)}")
+    if loop_set(s_cpu) != loop_set(s_gpu) or not loop_set(s_gpu) or cut_d > 0.01:
+        raise AssertionError(f"mesh cut, card vs CPU: loops {len(loop_set(s_cpu))} / "
+                             f"{len(loop_set(s_gpu))}, central poses {cut_d} m apart")
+    # the solver on phase 7's graph (the card's cut run), poses gated
+    solves["phase7_graph"] = solver_pairs("phase 7's graph", s_gpu._last_graph, mesh, modes)
+    functions = {"sc_distance_sharded": sc, "icp_batch_sharded": icp, "solve_sharded": solves}
+
+    # (d) a one-process NCCL group under the solver's collectives (phase 7's graph)
+    g = s_gpu._last_graph
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    with deterministic():
+        want, _ = solve_sharded(g, Mesh((dev, dev)), solver_cfg)
+        if not initialize_multihost(coordinator_address=f"127.0.0.1:{port}", num_processes=1,
+                                    process_id=0, device=dev):
+            raise AssertionError("initialize_multihost started no group")
+        try:
+            if dist.get_backend() != "nccl":
+                raise AssertionError(f"the CUDA group runs {dist.get_backend()}, not nccl")
+            grouped = make_mesh([dev] * 2)
+            if grouped.group is None:
+                raise AssertionError("a mesh built after initialize_multihost has no group")
+            got, info, nccl_s = timed_solve(lambda: solve_sharded(g, grouped, solver_cfg))
+        finally:
+            dist.destroy_process_group()
+    if not torch.equal(got, want):
+        raise AssertionError(f"solve_sharded through NCCL differs from the same call without a "
+                             f"group by {float((got - want).abs().max())}")
+
+    summary = {
+        "slots": MESH_SLOTS, "card": card_line(),
+        "run": {k: run_b[k] for k in ("wall_s", "keyframes_per_s", "ate_rmse_m", "sc_loops",
+                                      "icp_pairs", "icp_iterations_min_p50_p90_max", "host_reads",
+                                      "stages_s")},
+        "max_central_pose_diff_m": dmax,
+        "phase8": {k: full["stats"][k] for k in ("wall_s", "stages_s")},
+        "sharded_functions": functions, "cut_card_vs_cpu": cut_st,
+        "nccl": {"slots": 2, "graph_vars": g.num_vars, "lm_steps": info.iterations,
+                 "solve_s": nccl_s, "bit_equal": True},
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    log(f"[14] {json.dumps(summary)}")
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -2486,12 +2829,15 @@ def main() -> int:
     calls, last_run, brute_masks = phase_full_width(brute)
     k4_calls, k4_run = phase_default_config(cfg, brute_masks)
     phase_cli()
-    slam = {"card_vs_cpu": phase_slam_card_vs_cpu(), "full_width": phase_slam_full_width(),
-            "ltmapper_cli": phase_slam_cli()}
+    slam = {"card_vs_cpu": phase_slam_card_vs_cpu()}
+    slam["full_width"], slam_full = phase_slam_full_width()
+    slam["ltmapper_cli"] = phase_slam_cli()
     lifelong, lifelong_in = phase_lifelong()
     optin = phase_optin(cfg, brute_masks, k4_run, lifelong_in[:2])
     headline = phase_headline()
     mesh = phase_mesh(cfg, brute_masks, k4_run, lifelong_in)
+    slam_mesh = phase_slam_mesh(slam_full)
+    del slam_full
 
     nd = calls[0]
     k4_nd = next(st for st in k4_calls if st["case"] == "full_width_nd")
@@ -2563,7 +2909,8 @@ def main() -> int:
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"slam": slam}))
-    print(json.dumps({"lifelong": lifelong, "optin": optin, "headline": headline, "mesh": mesh}))
+    print(json.dumps({"lifelong": lifelong, "optin": optin, "headline": headline, "mesh": mesh,
+                      "slam_mesh": slam_mesh}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -8,7 +8,9 @@ Writes OUT/ltslam/ (trajectories) and OUT/removert/ (maps, deltas, scans);
 LT-removert reads LT-SLAM's central poses of both sessions.  ``--resume``
 skips a stage whose inputs and configuration are unchanged
 (``utils/stagecache.py``).  ``--device`` and ``--mesh-devices`` as in
-``ltm_torch.cli.ltslam``.
+``ltm_torch.cli.ltslam``: a mesh of n > 1 devices shards both stages'
+hot loops (LT-SLAM's SC distance, ICP farm and solver; LT-removert's
+sweeps and kNN).
 """
 
 from __future__ import annotations

@@ -154,7 +154,9 @@ def from_rot_trans(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., :, None]], -1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
+    # built on the device: no host copy, so the sharded solver's products
+    # can be captured as a CUDA graph
+    bottom = torch.eye(4, dtype=R.dtype, device=R.device)[3]
     return torch.cat([top, bottom.expand(batch + (1, 4))], -2)
 
 

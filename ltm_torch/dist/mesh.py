@@ -12,13 +12,14 @@ A sharded function (``ltm_torch.dist.sharding``, ``ltm_torch.dist.removert``)
 pads its sharded axis to a multiple of ``mesh.size``, runs the one-device
 function on each of this process's slots over that slot's shard, on that
 slot's device (launches are asynchronous, so slots on different cards
-overlap), and combines the shards' results with one of three collectives:
-:func:`reduce_or`, :func:`reduce_min` or :func:`concat`.  Each reduces over
-the local slots on one device and then, when ``initialize_multihost``
-started a process group, across processes (``all_reduce`` with MAX or MIN,
-``all_gather``; equal shards keep the gather legal).  OR, min and
-concatenation are exact, so a sharded result equals the one-device result
-bit for bit.
+overlap), and combines the shards' results with one of four collectives:
+:func:`reduce_or`, :func:`reduce_min`, :func:`reduce_sum` or :func:`concat`.
+Each reduces over the local slots on one device and then, when
+``initialize_multihost`` started a process group, across processes
+(``all_reduce`` with MAX, MIN or SUM, ``all_gather``; equal shards keep the
+gather legal).  OR, min and concatenation are exact, so a result combined
+with them equals the one-device result bit for bit.  :func:`reduce_sum`
+alone is not: it adds in another order than one device does.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["KF_AXIS", "Mesh", "make_mesh", "mesh_from_config", "pad_to_multiple",
-           "local_shards", "reduce_or", "reduce_min", "concat"]
+           "local_shards", "reduce_or", "reduce_min", "reduce_sum", "concat"]
 
 KF_AXIS = "kf"
 
@@ -136,6 +137,23 @@ def reduce_min(mesh: Mesh, parts: Sequence[torch.Tensor], device=None) -> torch.
         return out
     out = out.clone() if out is parts[0] else out   # all_reduce works in place
     dist.all_reduce(out, op=dist.ReduceOp.MIN, group=mesh.group)
+    return out
+
+
+def reduce_sum(mesh: Mesh, parts: Sequence[torch.Tensor], device=None) -> torch.Tensor:
+    """Sum of the slots' results (``ltm``'s ``psum``): the local parts added
+    in slot order on ``device`` (default the lead slot's), then, with a
+    process group, ``all_reduce`` SUM across processes.  The one inexact
+    collective: the sum runs in another order than one device's sum over
+    the whole axis, so the result may differ from it in the last bits."""
+    device = mesh.lead if device is None else device
+    out = parts[0].to(device)
+    for p in parts[1:]:
+        out = out + p.to(device)
+    if mesh.group is None:
+        return out
+    out = out.clone() if out is parts[0] else out   # all_reduce works in place
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=mesh.group)
     return out
 
 

@@ -1,5 +1,5 @@
-"""Sharded whole-map sweeps and the sharded brute kNN (port of the
-LT-removert half of ``ltm.dist.sharding``).
+"""Sharded whole-map sweeps, the sharded brute kNN, Scan Context distance
+and ICP farm (port of ``ltm.dist.sharding``).
 
 Each function shards one embarrassingly parallel axis over the mesh's
 slots and combines with one collective (``ltm_torch.dist.mesh``):
@@ -12,12 +12,18 @@ slots and combines with one collective (``ltm_torch.dist.mesh``):
     winner and flag test runs on each shard;
   * :func:`knn_avg_sqdist_sharded`: queries split, targets replicated,
     concatenation (on the card each shard is one launch of the 2-NN kernel
-    K1).
+    K1);
+  * :func:`sc_distance_sharded`: Scan Context query rows split, targets
+    replicated, concatenation;
+  * :func:`icp_batch_sharded`: ICP lanes split, each slot's lanes with
+    their own early exit, concatenation.
 
 Padded keyframes carry validity flags (a slot runs only its real ones);
-padded map points and queries are invalid.  Results equal the one-device
-functions bit for bit.  These mirror the reference's OpenMP loops
-(``ltremovert/src/Session.cpp:408,491``) at device scale.
+padded map points and queries are invalid; padded ICP lanes repeat the
+last lane.  A row, query or lane does not depend on the others, so the
+results are the one-device functions' on the same rows.  These mirror
+the reference's OpenMP loops (``ltremovert/src/Session.cpp:408,491``,
+``ltslam/src/LTslam.cpp:389,534``) at device scale.
 """
 
 from __future__ import annotations
@@ -33,9 +39,12 @@ from ltm_torch.kernels.projection import (
     range_image,
     sweep_discrepancy,
 )
+from ltm_torch.register.icp import ICPResult, icp_batch
+from ltm_torch.retrieval.scancontext import sc_distance_matrix
 
 __all__ = ["sweep_discrepancy_sharded", "sweep_discrepancy_map_sharded",
-           "knn_avg_sqdist_sharded", "kf_valid_shards"]
+           "knn_avg_sqdist_sharded", "sc_distance_sharded", "icp_batch_sharded",
+           "kf_valid_shards"]
 
 
 def kf_valid_shards(mesh: Mesh, K: int):
@@ -97,3 +106,38 @@ def knn_avg_sqdist_sharded(mesh: Mesh, query_xyz, query_mask, target_xyz, target
                             k=k, tile=tile)
              for d, a, b in local_shards(mesh, qx.shape[0])]
     return concat(mesh, parts, dev)[:n]
+
+
+def sc_distance_sharded(mesh: Mesh, query_descs, target_descs, full_shift_search: bool = True,
+                        search_ratio: float = 0.1):
+    """All-pairs Scan Context distance with the query rows sharded and the
+    targets replicated: :func:`~ltm_torch.retrieval.scancontext.sc_distance_matrix`'s
+    ``(dist (Q, T), shift (Q, T))`` (``ltm``'s defaults)."""
+    dev, q = query_descs.device, query_descs.shape[0]
+    qd = pad_to_multiple(query_descs, mesh.size)
+    parts = [sc_distance_matrix(qd[a:b].to(d), target_descs.to(d),
+                                full_shift_search=full_shift_search, search_ratio=search_ratio)
+             for d, a, b in local_shards(mesh, qd.shape[0])]
+    return tuple(concat(mesh, list(field), dev)[:q] for field in zip(*parts))
+
+
+def icp_batch_sharded(mesh: Mesh, src_xyz, src_mask, tgt_xyz, tgt_mask, init_transforms=None,
+                      **kw) -> ICPResult:
+    """A batch of ICP lanes sharded (the reference's OpenMP ICP farm,
+    ``ltslam/src/LTslam.cpp:389``): each slot runs
+    :func:`~ltm_torch.register.icp.icp_batch` on its lanes with its own
+    early exit.  The lane axis pads to a multiple of ``mesh.size`` by
+    repeating the last lane, as ``ltm`` does; all five ``ICPResult``
+    fields come back by concatenation, cut to the batch."""
+    dev, b = src_xyz.device, src_xyz.shape[0]
+    if init_transforms is None:
+        init_transforms = torch.eye(4, dtype=src_xyz.dtype, device=dev).expand(b, 4, 4)
+    pad = (-b) % mesh.size
+
+    def rep(t):
+        return torch.cat([t, t[-1:].expand((pad,) + tuple(t.shape[1:]))]) if pad else t
+
+    lanes = [rep(t) for t in (src_xyz, src_mask, tgt_xyz, tgt_mask, init_transforms)]
+    parts = [icp_batch(*(t[a:e].to(d) for t in lanes), **kw)
+             for d, a, e in local_shards(mesh, b + pad)]
+    return ICPResult(*(concat(mesh, list(field), dev)[:b] for field in zip(*parts)))

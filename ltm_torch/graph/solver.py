@@ -58,6 +58,20 @@ def _free(delta: torch.Tensor, g: GraphData) -> torch.Tensor:
     return torch.where(g.fixed[:, None], 0.0, delta)
 
 
+def _weighted_residual_fn(poses: torch.Tensor, g: GraphData, wb, wa):
+    """``f(delta)``: the flat whitened residual at ``retract(poses, delta)``
+    with the IRLS weights ``wb``, ``wa`` held fixed (``ltm``'s
+    ``_weighted_residual_fn``, the function whose ``jvp`` and ``vjp`` give
+    the matrix-free Gauss-Newton products)."""
+
+    def f(delta):
+        rp, rb, ra = whitened_residuals(se3.retract(poses, _free(delta, g)), g)
+        return torch.cat([rp.reshape(-1), (rb * wb[:, None]).reshape(-1),
+                          (ra * wa[:, None]).reshape(-1)])
+
+    return f
+
+
 class FactorJacobians(NamedTuple):
     """Whitened, IRLS-weighted residual Jacobian blocks at δ=0 (validity and
     weights folded in: invalid factors are zero blocks)."""
@@ -119,9 +133,18 @@ def _precond_blocks(poses, g: GraphData, wb, wa, lam, tridiag: bool = False, jac
     adjacent variables (the odometry chains).  Together the exact normal
     matrix of {priors, odometry, damping} plus the diagonal of every other
     factor — SPD, so the block-Thomas factorization needs no pivoting."""
-    V = g.num_vars
     if jac is None:
         jac = _factor_jacobians(poses, g, wb, wa)
+    return _precond_finish(*_precond_sums(poses, g, jac, tridiag), g, lam)
+
+
+def _precond_sums(poses, g: GraphData, jac: FactorJacobians, tridiag: bool = False):
+    """The factor sums of :func:`_precond_blocks` (blockdiag(JᵀWJ) and, when
+    ``tridiag``, the subdiagonal), before damping, the fixed-variable
+    identity and the chain cut: over a shard of the factors, the part that
+    a sharded solve sums across the mesh before :func:`_precond_finish`
+    (``ltm``'s ``psum`` in ``_precond_blocks``)."""
+    V = g.num_vars
     blocks = torch.zeros((V, 6, 6), dtype=poses.dtype, device=poses.device)
     blocks.index_add_(0, g.prior_idx, _gram(jac.Jp))
     blocks.index_add_(0, g.bet_i, _gram(jac.Jbi))
@@ -138,11 +161,16 @@ def _precond_blocks(poses, g: GraphData, wb, wa, lam, tridiag: bool = False, jac
         rev = (g.bet_i == g.bet_j + 1)[:, None, None]
         off_ij = torch.matmul(jac.Jbi.transpose(-1, -2), jac.Jbj)
         L.index_add_(0, g.bet_i, torch.where(rev, off_ij, 0.0))
+    return blocks, L
 
-    eye = torch.eye(6, dtype=poses.dtype, device=poses.device)
+
+def _precond_finish(blocks, L, g: GraphData, lam):
+    """``(D, L)`` of :func:`_precond_blocks` from the factor sums: damping,
+    identity rows at fixed variables, the chain cut at them."""
+    eye = torch.eye(6, dtype=blocks.dtype, device=blocks.device)
     blocks = blocks + lam * eye
     blocks = torch.where(g.fixed[:, None, None], eye, blocks)      # fixed vars: identity rows
-    if tridiag:
+    if L is not None:
         cut = g.fixed | torch.roll(g.fixed, 1)
         L = torch.where(cut[:, None, None], 0.0, L)
         L[0] = 0.0
@@ -264,7 +292,7 @@ def _hvp_from_jacobians(jac: FactorJacobians, g: GraphData, lam):
     return hvp
 
 
-def _pcg(hvp, b, apply_prec, g: GraphData, iters: int, tol: float):
+def _pcg(hvp, b, apply_prec, g: GraphData, iters: int, tol: float, capture: bool = True):
     """Preconditioned CG on (..., V, 6) right-hand sides; fixed variables
     masked out.  Leading dimensions are independent lanes: a lane stops
     (its state frozen) once its relative residual is at most ``tol``, as
@@ -276,7 +304,8 @@ def _pcg(hvp, b, apply_prec, g: GraphData, iters: int, tol: float):
     three thousand small launches on a 1 000-node graph — and the vector
     updates) is captured once as a CUDA graph after one eager iteration and
     replayed: the same ops on the same buffers, without the host's launch
-    cost."""
+    cost.  ``capture=False`` runs every iteration eagerly (an ``hvp`` that
+    copies between devices or runs a collective)."""
 
     def apply_m(r):
         return _free(apply_prec(r), g)
@@ -313,7 +342,7 @@ def _pcg(hvp, b, apply_prec, g: GraphData, iters: int, tol: float):
           torch.zeros(lanes, dtype=torch.int64, device=b.device))
     count_host_read("pcg")
     more = iters > 0
-    if b.is_cuda and more and CUDA_GRAPHS:
+    if b.is_cuda and more and CUDA_GRAPHS and capture:
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
@@ -346,13 +375,32 @@ def _cost(g: GraphData, poses, cauchy_k):
 
 
 def _make_preconditioner(poses, g, wb, wa, lam, precond: str, jac, chains):
-    if precond == "tridiag":
-        D, L = _precond_blocks(poses, g, wb, wa, lam, tridiag=True, jac=jac)
+    D, L = _precond_blocks(poses, g, wb, wa, lam, tridiag=precond == "tridiag", jac=jac)
+    return _preconditioner(D, L, chains)
+
+
+def _preconditioner(D, L, chains):
+    """``apply(r) -> M⁻¹ r`` from the finished blocks: block-Thomas sweeps
+    over the chains when there is a subdiagonal ``L``, block-Jacobi else."""
+    if L is not None:
         Cinv, Lc = _tridiag_factor(D, L, chains)
         return lambda r: _tridiag_apply(Cinv, Lc, chains, r)
-    D, _ = _precond_blocks(poses, g, wb, wa, lam, jac=jac)
     minv = torch.linalg.inv_ex(D).inverse
     return lambda r: torch.matmul(minv, r[..., None])[..., 0]
+
+
+def _accept(poses, cand, lam, cost, new_cost, cfg: SolverConfig):
+    """The LM accept test and damping update of a step from ``poses`` to
+    the candidate ``cand``: (poses1, lam1, cost1, done).  ``done``: an
+    accepted step stopped improving, or the damping saturated while steps
+    keep being rejected."""
+    accept = new_cost < cost
+    poses1 = torch.where(accept, cand, poses)
+    lam1 = torch.clamp(torch.where(accept, lam * cfg.lambda_down, lam * cfg.lambda_up), 1e-9, 1e6)
+    rel_impr = (cost - new_cost) / torch.clamp(cost, min=1e-20)
+    done = (accept & (rel_impr < 1e-7)) | (~accept & (lam >= 1e6))
+    cost1 = torch.where(accept, new_cost, cost)
+    return poses1, lam1, cost1, done
 
 
 def _lm_step(g: GraphData, poses, lam, cost, cfg: SolverConfig, chains):
@@ -368,24 +416,15 @@ def _lm_step(g: GraphData, poses, lam, cost, cfg: SolverConfig, chains):
     delta, res = _pcg(hvp, b, apply_prec, g, cfg.cg_iterations, cfg.cg_tol)
 
     cand = se3.retract(poses, _free(delta, g))
-    new_cost = _cost(g, cand, cfg.cauchy_k)
-    accept = new_cost < cost
-    poses1 = torch.where(accept, cand, poses)
-    lam1 = torch.clamp(torch.where(accept, lam * cfg.lambda_down, lam * cfg.lambda_up), 1e-9, 1e6)
-    rel_impr = (cost - new_cost) / torch.clamp(cost, min=1e-20)
-    done = (accept & (rel_impr < 1e-7)) | (~accept & (lam >= 1e6))
-    cost1 = torch.where(accept, new_cost, cost)
-    return poses1, lam1, cost1, done, res
+    return (*_accept(poses, cand, lam, cost, _cost(g, cand, cfg.cauchy_k), cfg), res)
 
 
-def solve(g: GraphData, cfg: SolverConfig = SolverConfig()) -> Tuple[torch.Tensor, SolveInfo]:
-    """Optimize; returns (poses (V,4,4), SolveInfo).  The LM loop runs on
-    the host: it stops on ``done``, or after three steps in a row that do
-    not improve the cost by a relative 1e-7 (``ltm``'s stall exit)."""
-    poses = g.poses0
-    chains = _chains(g) if cfg.preconditioner == "tridiag" else None
+def _lm_loop(step, poses, c0, cfg: SolverConfig) -> Tuple[torch.Tensor, SolveInfo]:
+    """The host LM loop over ``step(poses, lam, cost) -> (poses1, lam1,
+    cost1, done, cg_res)`` from the initial cost ``c0``: it stops on
+    ``done``, or after three steps in a row that do not improve the cost by
+    a relative 1e-7 (``ltm``'s stall exit)."""
     lam = torch.full((), cfg.lambda_init, dtype=poses.dtype, device=poses.device)
-    c0 = _cost(g, poses, cfg.cauchy_k)
     cost = c0
     res = torch.zeros((), dtype=poses.dtype, device=poses.device)
     count_host_read("lm")
@@ -393,7 +432,7 @@ def solve(g: GraphData, cfg: SolverConfig = SolverConfig()) -> Tuple[torch.Tenso
     stall = 0
     it = 0
     for it in range(1, cfg.max_outer_iterations + 1):
-        poses, lam, cost, done, res = _lm_step(g, poses, lam, cost, cfg, chains)
+        poses, lam, cost, done, res = step(poses, lam, cost)
         count_host_read("lm")
         if bool(done):
             break
@@ -407,6 +446,14 @@ def solve(g: GraphData, cfg: SolverConfig = SolverConfig()) -> Tuple[torch.Tenso
             stall = 0
         prev_cost = c
     return poses, SolveInfo(c0, cost, it, res)
+
+
+def solve(g: GraphData, cfg: SolverConfig = SolverConfig()) -> Tuple[torch.Tensor, SolveInfo]:
+    """Optimize; returns (poses (V,4,4), SolveInfo).  The LM loop runs on
+    the host (:func:`_lm_loop`)."""
+    chains = _chains(g) if cfg.preconditioner == "tridiag" else None
+    return _lm_loop(lambda poses, lam, cost: _lm_step(g, poses, lam, cost, cfg, chains),
+                    g.poses0, _cost(g, g.poses0, cfg.cauchy_k), cfg)
 
 
 def marginal_covariance(g: GraphData, poses: torch.Tensor, var_indices, cg_iterations: int = 200,

@@ -123,12 +123,23 @@ def _ring_sqdists(rq: torch.Tensor, rt: torch.Tensor) -> torch.Tensor:
 
 def detect_loops_between_sessions(query_descs, query_mask, target_descs, target_mask,
                                   dist_threshold: float = 0.3, num_candidates: int = 3,
-                                  full_shift_search: bool = False, search_ratio: float = 0.1):
+                                  full_shift_search: bool = False, search_ratio: float = 0.1,
+                                  mesh=None):
     """Batched ``detectLoopClosureIDBetweenSession`` over every source node:
-    ``(loop_idx (Q,) int32 [-1 = no loop], dist (Q,), yaw_rad (Q,))``."""
-    dist, shift = sc_distance_matrix(query_descs, target_descs,
-                                     full_shift_search=full_shift_search,
-                                     search_ratio=search_ratio)
+    ``(loop_idx (Q,) int32 [-1 = no loop], dist (Q,), yaw_rad (Q,))``.
+    With ``mesh`` the all-pairs distance, the dominant cost, shards its
+    query rows (``ltm_torch.dist.sharding.sc_distance_sharded``); the
+    candidate selection stays replicated."""
+    if mesh is not None:
+        from ltm_torch.dist.sharding import sc_distance_sharded
+
+        dist, shift = sc_distance_sharded(mesh, query_descs, target_descs,
+                                          full_shift_search=full_shift_search,
+                                          search_ratio=search_ratio)
+    else:
+        dist, shift = sc_distance_matrix(query_descs, target_descs,
+                                         full_shift_search=full_shift_search,
+                                         search_ratio=search_ratio)
     rd = _ring_sqdists(ring_keys(query_descs), ring_keys(target_descs))
     allowed = target_mask[None, :].expand(rd.shape)
     return _best_candidates(dist, shift, rd, allowed, query_mask, dist_threshold,

@@ -9,6 +9,10 @@ central graph → optimize → SC loops (+ICP) → optimize → RS loops (info g
   * ICP verification runs as batches of fixed-shape ICP lanes (the
     lane-compacted farm once there are more than 8 pairs);
   * optimization is the batch LM/PCG solver (``ltm_torch.graph.solver``);
+  * on a mesh (``cfg.mesh_devices``, or ``LTSlam.mesh`` assigned) the SC
+    distance, the ICP farm and the solver shard over its slots
+    (``ltm_torch.dist``); the marginals and intra-session loops stay on
+    one device;
   * the 1e-12-variance gauge priors (``LTslam.cpp:565-576,591-594``) are
     frozen variables;
   * anchored loop measurements use ``measured = Between(central target
@@ -24,6 +28,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass, field
+from functools import partial
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -34,6 +39,8 @@ from ltm_torch.core import se3
 from ltm_torch.core.config import LTSlamConfig
 from ltm_torch.device import resolve_device
 from ltm_torch.dist.mesh import mesh_from_config
+from ltm_torch.dist.sharding import icp_batch_sharded
+from ltm_torch.dist.solver import solve_sharded
 from ltm_torch.graph.factors import build_graph_data
 from ltm_torch.graph.solver import marginal_covariance, solve
 from ltm_torch.io.poses import write_kitti_poses
@@ -63,17 +70,18 @@ class LTSlam:
     """Central/query alignment, generalized to N sessions (session 0 is the
     base).  ``device=None`` runs on the CUDA card.  ``cfg.mesh_devices``
     follows ``ltm``'s contract (``ltm_torch.dist.mesh_from_config``): on
-    one card it gives no mesh and the one-device path runs; a mesh of more
-    than one slot raises until LT-SLAM's sharded Scan Context, ICP farm and
-    solver are ported (the LT-SLAM mesh slice)."""
+    one card it gives no mesh and the one-device path runs; on the CPU n
+    slots of the CPU.  A caller may assign ``mesh`` (any
+    ``ltm_torch.dist.Mesh``, e.g. several slots of one card)."""
 
     def __init__(self, cfg: Optional[LTSlamConfig] = None, device=None):
         self.cfg = cfg or LTSlamConfig()
         self.device = resolve_device(device)
-        if mesh_from_config(self.cfg.mesh_devices, self.device) is not None:
-            raise NotImplementedError(
-                "LTSlam on a mesh of more than one slot (sharded Scan Context, ICP farm and "
-                "solver) is the LT-SLAM mesh slice, not ported yet; unset mesh_devices")
+        # device mesh for the hot loops (the reference's OpenMP loops,
+        # LTslam.cpp:389,534, at device scale)
+        self.mesh = mesh_from_config(self.cfg.mesh_devices, self.device)
+        if self.mesh is not None:
+            log.info("ltslam: sharding SC/ICP/solver over %d devices", self.mesh.size)
         # ICP iterations of every pair the farm ran, in order (diagnostics)
         self.icp_iterations: List[int] = []
 
@@ -230,7 +238,10 @@ class LTSlam:
 
     def _optimize(self):
         g = self._build_graph()
-        poses, info = solve(g, self.cfg.solver)
+        if self.mesh is not None:
+            poses, info = solve_sharded(g, self.mesh, self.cfg.solver)
+        else:
+            poses, info = solve(g, self.cfg.solver)
         host = poses.cpu()
         self._estimates = host.double().numpy()
         self.poses0 = host.numpy().astype(np.float32)        # warm start next round
@@ -251,7 +262,7 @@ class LTSlam:
         target, source = self.sessions[target_idx], self.sessions[source_idx]
         loop_idx, _, yaw = sc_retrieval.detect_loops_between_sessions(
             source.descriptors, source.node_valid, target.descriptors, target.node_valid,
-            **sc_retrieval.config_kwargs(self.cfg.scan_context))
+            mesh=self.mesh, **sc_retrieval.config_kwargs(self.cfg.scan_context))
         loop_idx = loop_idx.cpu().numpy()
         yaw = yaw.cpu().numpy()
         pairs = [(int(loop_idx[s]), s) for s in range(source.num_nodes) if loop_idx[s] >= 0]
@@ -313,11 +324,13 @@ class LTSlam:
 
     def _run_icp_batches(self, pair_data, init_transforms, chunk: int = 8):
         """Fixed-shape ICPs in batches (the reference's OpenMP ICP farm,
-        ``LTslam.cpp:389``); returns [(T, fitness, converged)]."""
+        ``LTslam.cpp:389``); returns [(T, fitness, converged)].  On a mesh,
+        as in ``ltm``, no lane-compacted farm: chunks of at least one lane
+        a slot, each chunk's lanes sharded (``icp_batch_sharded``)."""
         cfg = self.cfg.icp
         dev = self.device
         inits_np = np.asarray(init_transforms, np.float32)
-        if cfg.coarse_iterations == 0 and len(pair_data) > 8:
+        if self.mesh is None and cfg.coarse_iterations == 0 and len(pair_data) > 8:
             # lane-compacted farm over a sticky pow-2 lane bucket: pads are
             # EMPTY lanes (all-False masks), retired before the first segment
             B = len(pair_data)
@@ -352,6 +365,10 @@ class LTSlam:
             return [(T[b], float(fit[b]), bool(conv[b])) for b in range(B)]
         results = []
         iter_counts = []
+        farm = icp_batch
+        if self.mesh is not None:
+            chunk = max(chunk, self.mesh.size)
+            farm = partial(icp_batch_sharded, self.mesh)
         for c0 in range(0, len(pair_data), chunk):
             batch = pair_data[c0: c0 + chunk]
             inits = inits_np[c0: c0 + chunk]
@@ -359,7 +376,7 @@ class LTSlam:
             if chunk - n_real:
                 batch = batch + [batch[-1]] * (chunk - n_real)
                 inits = np.concatenate([inits, np.repeat(inits[-1:], chunk - n_real, 0)])
-            res = icp_batch(
+            res = farm(
                 torch.stack([b[0] for b in batch]), torch.stack([b[1] for b in batch]),
                 torch.stack([b[2] for b in batch]), torch.stack([b[3] for b in batch]),
                 torch.from_numpy(inits).to(dev),

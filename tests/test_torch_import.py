@@ -26,6 +26,7 @@ def test_import_leaves_jax_and_ltm_out():
             "import ltm_torch.cli.ltmapper, ltm_torch.io.synthetic, ltm_torch.io.g2o\n"
             "import ltm_torch.ltmap.lifelong, ltm_torch.kernels.occlusion\n"
             "import ltm_torch.kernels.grid_knn, ltm_torch.dist, ltm_torch.dist.init\n"
+            "import ltm_torch.dist.solver, ltm_torch.dist.sharding\n"
             "import ltm_torch.core.pointcloud, ltm_torch.graph.checkpoint\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ltm'))\n"
             "print(bad)\n"

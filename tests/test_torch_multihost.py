@@ -5,7 +5,12 @@ through it, each builds a mesh of 2 CPU slots (4 global slots), and
     summed give 24.0, as ``ltm``'s psum does, and the OR and min see every
     slot;
   * one ``block_sweep_discrepancy_sharded`` call across both processes
-    (5 keyframes padded to 8) equals the one-device sweep.
+    (5 keyframes padded to 8) equals the one-device sweep;
+  * LT-SLAM's ``solve_sharded`` (schur) across both processes: both ranks
+    take the same LM steps to the same poses, within the solve bounds of
+    tests/test_dist.py of the same call on one process's 4 CPU slots; and
+    ``sc_distance_sharded`` and ``icp_batch_sharded`` equal that call's
+    results bit for bit.
 Each worker has a hard timeout and both are killed on any failure, so a
 hang fails the test instead of stalling the suite."""
 
@@ -61,6 +66,57 @@ _WORKER = textwrap.dedent("""
     want = block_sweep_discrepancy(*args, **kw)
     assert 0 < int(want.sum()) and torch.equal(got, want)
     print("SWEEP_OK", int(got.sum()), flush=True)
+
+    # LT-SLAM's sharded functions across both processes, against the same
+    # call on a one-process mesh of 4 CPU slots
+    import hashlib
+
+    from ltm_torch.core import se3
+    from ltm_torch.core.config import SolverConfig
+    from ltm_torch.dist import Mesh, icp_batch_sharded, sc_distance_sharded, solve_sharded
+    from ltm_torch.graph.factors import build_graph_data
+
+    solo = Mesh((torch.device("cpu"),) * 4)
+    n = 10                                  # tests/test_dist.py's two-session anchored graph
+    site = torch.stack([se3.from_rpy(0.0, 0.0, 0.02 * k, t=[1.0 * k, 0.1 * k, 0.0])
+                        for k in range(n)]).numpy()
+    t1 = se3.from_rpy(0.0, 0.0, 0.2, t=[1.0, 0.5, 0.1]).numpy()
+    x1 = np.linalg.inv(t1)[None] @ site
+    gt = np.concatenate([np.stack([np.eye(4), t1]), site, x1]).astype(np.float32)
+    noise = rng.normal(scale=0.03, size=(len(gt), 6)).astype(np.float32)
+    init = se3.retract(torch.from_numpy(gt), torch.from_numpy(noise)).numpy()
+    init[0] = init[1] = np.eye(4)
+    init[2], init[2 + n] = gt[2], gt[2 + n]
+    fixed = np.zeros(len(gt), bool)
+    fixed[[0, 2, 2 + n]] = True
+    betweens = [(2 + s * n + k, 3 + s * n + k, np.linalg.inv(x[k]) @ x[k + 1], (1e-4,) * 6, False)
+                for s, x in ((0, site), (1, x1)) for k in range(n - 1)]
+    anchored = [(2 + k, 3 + n + k, 0, 1, np.linalg.inv(site[k]) @ site[k + 1],
+                 (1e-4,) * 3 + (1e-3,) * 3) for k in range(0, n - 1, 2)]
+    g = build_graph_data(init, fixed, priors=[(1, np.eye(4), (np.pi ** 2,) * 3 + (1e8,) * 3)],
+                         betweens=betweens, anchored=anchored)
+    cfg = SolverConfig(max_outer_iterations=8)
+    poses, info = solve_sharded(g, mesh, cfg)
+    want, want_info = solve_sharded(g, solo, cfg)
+    assert float(se3.log(se3.between(want, poses)).abs().max()) < 1e-3
+    cost, want_cost = float(info.cost_final), float(want_info.cost_final)
+    assert abs(cost - want_cost) <= 0.05 * abs(want_cost) + 1e-4
+    assert float(se3.log(se3.between(poses[1], torch.from_numpy(gt[1]))).abs().max()) < 0.05
+    print("SOLVE", info.iterations, hashlib.sha1(poses.numpy().tobytes()).hexdigest(), flush=True)
+
+    qd = torch.from_numpy(rng.uniform(0, 4, (13, 20, 60)).astype(np.float32))
+    td = torch.from_numpy(rng.uniform(0, 4, (9, 20, 60)).astype(np.float32))
+    for a, b in zip(sc_distance_sharded(mesh, qd, td), sc_distance_sharded(solo, qd, td)):
+        assert torch.equal(a, b)
+    src = torch.stack([(xyz[:256] - 0.1 * b) @ se3.from_rpy(0.0, 0.0, 0.03 * b)[:3, :3].T
+                       for b in range(5)])
+    lanes = (src, torch.ones(5, 256, dtype=torch.bool), xyz[None, :1024].expand(5, 1024, 3),
+             torch.ones(5, 1024, dtype=torch.bool))
+    got = icp_batch_sharded(mesh, *lanes, max_iterations=20, tile=512)
+    assert got.converged.all() and int(got.iterations.max()) > 1
+    for a, b in zip(got, icp_batch_sharded(solo, *lanes, max_iterations=20, tile=512)):
+        assert torch.equal(a, b)
+    print("LTSLAM_OK", flush=True)
     torch.distributed.destroy_process_group()
 """)
 
@@ -101,6 +157,10 @@ def test_two_process_initialize_and_collectives(tmp_path):
         sums = [line for line in out.splitlines() if line.startswith("SUM_OK")]
         assert sums and float(sums[0].split()[1]) == 24.0, out
         assert any(line.startswith("SWEEP_OK") for line in out.splitlines()), out
+        assert any(line.startswith("LTSLAM_OK") for line in out.splitlines()), out
+    # both ranks take the same LM steps to the same poses
+    solves = [[line for line in out.splitlines() if line.startswith("SOLVE")] for out in outs]
+    assert all(len(s) == 1 for s in solves) and solves[0] == solves[1], solves
 
 
 def test_single_process_starts_nothing(monkeypatch):

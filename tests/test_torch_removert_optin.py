@@ -113,16 +113,16 @@ def test_grid_knn_masks_equal_brute(bundle, default_port):
 
 
 def test_mesh_still_raises(bundle, culled_port):
-    """LT-SLAM's mesh (the next slice) still raises.  LT-removert with
-    ``use_occlusion_culling`` on 3 CPU slots (3 pads the keyframe and map
-    axes) leaves the culled branches, as ``ltm`` does: no sweep is culled,
-    the sharded forward, project-static and strong/weak sweeps run, and
-    the 14 masks equal the one-device culled run's."""
+    """``mesh_devices`` no longer raises in ``LTSlam`` either: it takes a
+    mesh of 2 CPU slots (its mesh path: tests/test_torch_slam_mesh.py).
+    LT-removert with ``use_occlusion_culling`` on 3 CPU slots (3 pads the
+    keyframe and map axes) leaves the culled branches, as ``ltm`` does: no
+    sweep is culled, the sharded forward, project-static and strong/weak
+    sweeps run, and the 14 masks equal the one-device culled run's."""
     from ltm_torch.core.config import LTSlamConfig
     from ltm_torch.slam import LTSlam
 
-    with pytest.raises(NotImplementedError, match="mesh_devices"):
-        LTSlam(LTSlamConfig(mesh_devices=2), device="cpu")
+    assert LTSlam(LTSlamConfig(mesh_devices=2), device="cpu").mesh.size == 2
     rm, on_mesh = _port(bundle, use_occlusion_culling=True, mesh_devices=3)
     assert rm.mesh.size == 3
     assert rm.occlusion_stats == []

@@ -6,7 +6,8 @@ drives the full chain):
     capacities of tests/test_torch_slam.py from a YAML config): ``ltm``'s
     file names, poses within 0.01 m of ``ltm``'s run on the same sessions;
     ``--resume`` skips an unchanged second run;
-  * argument errors and the device-mesh contract.
+  * argument errors and the device-mesh contract (``--mesh-devices 2`` on
+    the CPU: the one-device run's trajectories).
 """
 
 import dataclasses
@@ -66,11 +67,22 @@ def test_ltslam_cli_matches_ltm(sessions, monkeypatch):
 
 
 def test_ltslam_cli_errors(sessions, tmp_path, capsys):
+    """Argument errors, and the device-mesh contract: ``--mesh-devices 2``
+    on the CPU runs a mesh of 2 CPU slots and writes the one-device run's
+    trajectories (anchors and poses within rtol 1e-4 / atol 5e-4, the
+    bounds of tests/test_dist_pipeline.py)."""
     root, _, config = sessions
     with pytest.raises(SystemExit) as e:
         ltslam.main(["--device", "cpu"])
     assert e.value.code == 2
     assert "sessions_dir required" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="mesh_devices"):
-        ltslam.main(["--config", config, "--sessions-dir", str(root / "data"), "--out",
-                     str(tmp_path), "--device", "cpu", "--mesh-devices", "2"])
+    outs = {}
+    for mesh in ("1", "2"):
+        outs[mesh] = tmp_path / f"mesh_{mesh}"
+        assert ltslam.main(["--config", config, "--sessions-dir", str(root / "data"), "--out",
+                            str(outs[mesh]), "--device", "cpu", "--mesh-devices", mesh]) == 0
+    assert sorted(os.listdir(outs["2"])) == sorted(FILES)
+    for n in FILES:
+        np.testing.assert_allclose(read_kitti_poses(str(outs["2"] / n)),
+                                   read_kitti_poses(str(outs["1"] / n)), rtol=1e-4, atol=5e-4,
+                                   err_msg=n)
