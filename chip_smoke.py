@@ -26,7 +26,14 @@ sm_90a), then runs fourteen phases, each of which raises on failure:
      with a misaligned ``target_extra``, and exactly ``k_blocks`` and
      ``k_blocks + 1`` hits, each with the plain version's
      ``chunk_overflow`` and ``order``, and the kernels' own counts of their
-     work (block tests, work items) equal to the plain steps';
+     work (block tests, work items) equal to the plain steps'; the sweep
+     kernels K2 and K3 (``csrc/sweep.cu``): the pixel rule on 2^21 points
+     (azimuth ±180°, row clamps, pixel edges, range 0, the packed clamp)
+     against ``spherical_project``/``_pack_points``, then the four block
+     sweeps on both ``reverse`` values, a ``presel`` list with padding
+     entries, ``k_blocks == n_blocks``, a point at range 0, an all-masked
+     keyframe, far-padded keyframes, K = 0 and forced keyframe chunks, each
+     launched twice and bit-equal to its ``*_plain`` loop;
   3. card vs CPU: ``Removerter.run`` on a small synthetic survey on the CPU
      (plain versions) and on the card (kernels); the 14 named point sets
      agree within max(2, 1e-4·|set|) points;
@@ -45,7 +52,11 @@ sm_90a), then runs fourteen phases, each of which raises on failure:
      its bound and the K1 yardstick, whole and by part (the prep: keys,
      sort and bounds; the scan, at segments of 4, 8 and 16 blocks), with its
      per-kernel device times, the kernels' block tests a chunk and work
-     items, and merge launches;
+     items, and merge launches.  K2 and K3 must launch in every timed run;
+     every sweep call of the warm-up run is held to its plain loop bit for
+     bit, the largest call of each sweep is timed against its bound and its
+     plain loop, and one set of runs in turns (plain sweeps, kernels,
+     kernels, plain) gives both routes' stage walls, its sets phase 4's;
   6. the CLI: ``python -m ltm_torch.cli.ltremovert`` in a subprocess on
      session directories of 8 keyframes x 120k points a session; its
      artifact tree must hold the expected files with the point counts of
@@ -75,8 +86,10 @@ sm_90a), then runs fourteen phases, each of which raises on failure:
      sessions x 6 keyframes on the card (K4 must launch) and on the CPU:
      each round's 14 sets and the live map within phase 3's rule;
  11. the opt-in configurations: (a) occlusion culling on phase 5's
-     workload, its 14 masks bit-equal to phase 5's, and the grid kNN
-     refused on that corridor for the points past ±2^9 cells alone; (b)
+     workload, its 14 masks bit-equal to phase 5's, every presel sweep
+     call (K2) of its warm-up run launched twice and bit-equal to its
+     plain loop and to the run's result, and the grid kNN refused on that
+     corridor for the points past ±2^9 cells alone; (b)
      the grid kNN on phase 10's first session pair, its masks equal to the
      brute path's, whose K1 calls are held to the plain version, its ND
      call timed against K1 and K4; (c) ``device_scan_prep`` on phase 5's
@@ -87,8 +100,10 @@ sm_90a), then runs fourteen phases, each of which raises on failure:
      loop of these paths (torch ops) at its largest call against its
      bound;
  12. ``bench.py:62-119``'s headline workload: the 5 M-point visibility sweep
-     (``block_sweep_discrepancy``, 32 keyframes x 65 536 points), its
-     keyframes/s and flagged count;
+     (``block_sweep_discrepancy``, 32 keyframes x 65 536 points, K2 in every
+     timed sweep), its keyframes/s and flagged count, the sweep in turns
+     through the plain loop and K2 (bit-equal), and K2's time against its
+     bound;
  13. LT-removert on a mesh of 4 slots of the card (``ltm_torch.dist``):
      ``Removerter.run`` on phase 5's workload with the mesh assigned to
      ``rm.mesh``, its 14 sets equal to phase 4's with the chunked kNN and
@@ -116,7 +131,8 @@ held at one split, which must give the same bits.
 It prints the ``{"kernels": [...]}`` line, the ``{"slam": {...}}`` line
 (phases 7-9), the ``{"lifelong": ..., "optin": ..., "headline": ..., "mesh": ...,
 "slam_mesh": ...}`` line (phases 10-14), then the card's name and power limit, and as its last line
-``{"ok": true, "device": {...}}``.  The LT-SLAM path runs no hand kernel:
+``{"ok": true, "device": {...}}``.  The ``kernels`` line lists K1, K4, K2
+and K3.  The LT-SLAM path runs no hand kernel:
 its hot loops are PyTorch ops, measured in phase 8.  Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero
 and prints no result.  The port imports neither ``jax`` nor ``ltm``.
@@ -141,6 +157,7 @@ import numpy as np
 
 H100_FP32_FLOPS = 67e12      # non-tensor FP32 peak, H100 SXM (an FMA counts as two)
 H100_BYTES_PER_S = 3.35e12   # HBM3 peak, H100 SXM
+H100_FP64_FLOPS = 34e12      # non-tensor FP64 peak, H100 SXM (NVIDIA data sheet)
 OUT_DIR = "chiprun_out"
 
 
@@ -736,6 +753,453 @@ def check_chunk_case(name, q, qm, bm, extra, kw):
     return st
 
 
+# ---- K2 and K3, the visibility sweeps --------------------------------------
+
+SWEEP_FOV = (50.0, 360.0)
+SWEEP_SCALE = float(2 ** 27) / 256.0
+SWEEP_FUNCS = ("block_sweep_discrepancy", "block_sweep_discrepancy_vs_images",
+               "block_sweep_discrepancy_vs_images_presel", "block_fused_visibility_images")
+# Operations the pixel rule needs a point (sweep.cu): float64, the pose's 3
+# rows (2 multiplies, 2 adds each), the two sums of squares, the two angles'
+# degrees and offsets and the row (2 each), and two atan2 counted as 20
+# each (a degree-~9 polynomial and its range reduction: an undercount,
+# which keeps the bound a bound); float32, the pose's 6, the squares and
+# roots 3, the row and column 6.  A scan point skips the pose.
+SWEEP_FP64_POINT, SWEEP_FP32_POINT = 62, 15
+SWEEP_FP64_SCAN, SWEEP_FP32_SCAN = 50, 9
+
+
+def sweep_counts():
+    """The launch counts of K2 and K3."""
+    from ltm_torch.kernels import sweep
+
+    return sweep.discrepancy_sweep.launches, sweep.winner_sweep.launches
+
+
+def set_sweep_counts(values):
+    from ltm_torch.kernels import sweep
+
+    sweep.discrepancy_sweep.launches, sweep.winner_sweep.launches = values
+
+
+def sweep_diff(name, got, want):
+    """(entries that differ, largest absolute difference) between two
+    results of a sweep on the card: masks as 0/1, images as their values;
+    entries with the same bits count 0."""
+    import torch
+
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    differ, err = 0, 0.0
+    for x, y in zip(got, want, strict=True):
+        if x.shape != y.shape or x.dtype != y.dtype:
+            raise AssertionError(f"{name}: {x.shape} {x.dtype} against {y.shape} {y.dtype}")
+        ne = (x.view(torch.int32) != y.view(torch.int32)) if x.dtype == torch.float32 else x != y
+        n = int(ne.sum())
+        if n:
+            differ += n
+            err = max(err, float((x[ne].double() - y[ne].double()).abs().max()))
+    return differ, err
+
+
+def compare_sweep(name, fn, args, kwargs, launches=None):
+    """``blocks.<fn>`` through its kernel on the card, a second launch on
+    the same inputs, and ``blocks.<fn>_plain`` on them: every output the
+    same bits.  ``launches``: the (K2, K3) launch sets the kernel call must
+    make.  The launch counts are restored.  Returns stats (with the entries
+    that differ from plain and their largest absolute difference) and the
+    result."""
+    import torch
+
+    from ltm_torch.kernels import blocks
+
+    saved = sweep_counts()
+    set_sweep_counts((0, 0))
+    try:
+        got = getattr(blocks, fn)(*args, **kwargs)
+        torch.cuda.synchronize()
+        made = sweep_counts()
+        again = getattr(blocks, fn)(*args, **kwargs)
+        plain = getattr(blocks, fn + "_plain")(*args, **kwargs)
+        torch.cuda.synchronize()
+    finally:
+        set_sweep_counts(saved)
+    differ, err = sweep_diff(f"{name}, kernel against plain", got, plain)
+    repeat, _ = sweep_diff(f"{name}, two launches", got, again)
+    if differ or repeat:
+        raise AssertionError(f"{name}: {differ} entries differ from the plain version (largest "
+                             f"absolute difference {err}), {repeat} between two launches")
+    if launches is not None and made != tuple(launches):
+        raise AssertionError(f"{name}: (K2, K3) launch sets {made}, expected {tuple(launches)}")
+    mask = got[0] if isinstance(got, tuple) else got
+    st = {"case": name, "function": fn, "flagged": int(mask.sum()), "differ": differ,
+          "max_abs_err": err, "repeat_differ": repeat, "k2_launches": made[0],
+          "k3_launches": made[1]}
+    return st, got
+
+
+def rot_yaw_tilt(yaw, tilt):
+    """A rotation: ``tilt`` about x, then ``yaw`` about z."""
+    c, s = np.cos(yaw), np.sin(yaw)
+    ct, st = np.cos(tilt), np.sin(tilt)
+    return np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]]) @ np.array([[1, 0, 0], [0, ct, -st],
+                                                                    [0, st, ct]])
+
+
+def pixel_rule_points(rng, n, shape):
+    """(n, 3) float32 points that reach the pixel rule's edges: azimuth
+    ±180° (y = ±0 and ±1e-30 behind the sensor), elevations past the FOV
+    (row clamps), azimuths and elevations on pixel edges (to float32
+    rounding), points at range 0 and ranges past the packed clamp (the
+    int32 cut), then random directions and ranges."""
+    nrow, ncol = shape
+    vfov, hfov = SWEEP_FOV
+    q = n // 8
+    r = rng.uniform(0.5, 120.0, n)
+    az = np.radians(rng.uniform(-180.0, 180.0, n))
+    el = np.radians(rng.uniform(-40.0, 40.0, n))           # past ±25°: row clamps
+    c = rng.integers(0, ncol, q)
+    az[:q] = np.radians((c + 0.5) * hfov / ncol - hfov / 2.0)                 # column edges
+    rr = rng.integers(0, nrow, q)
+    el[q:2 * q] = np.radians(vfov / 2.0 - (rr + 0.5) * vfov / nrow)           # row edges
+    r[2 * q:2 * q + q // 4] = rng.uniform(256.0, 400.0, q // 4)               # packed clamp
+    xyz = np.stack([r * np.cos(el) * np.cos(az), r * np.cos(el) * np.sin(az), r * np.sin(el)],
+                   1).astype(np.float32)
+    m = 3 * q
+    xyz[m:m + 64, 0] = -rng.uniform(1.0, 50.0, 64).astype(np.float32)          # azimuth ±180°
+    xyz[m:m + 64, 1] = np.tile(np.array([0.0, -0.0, 1e-30, -1e-30], np.float32), 16)
+    xyz[m + 64:m + 72] = 0.0                                                  # range 0
+    return xyz
+
+
+def pixel_rule_case(dev):
+    """The pixel rule of sweep.cu against ``projection.spherical_project``
+    and ``_pack_points`` on ``apply_pose`` (the plain versions, on the
+    card), on 2^20 edge-heavy points under the identity and 2^20 random
+    points under a rotated pose: pixel ids, ranges, packed values and proj
+    pixel ids, 0 differing."""
+    import torch
+
+    from ltm_torch.kernels import projection as tp
+    from ltm_torch.kernels import sweep
+
+    shape, proj = tp.rimg_shape(SWEEP_FOV, 2.5), tp.rimg_shape(SWEEP_FOV, 3.0)
+    rng = np.random.default_rng(3)
+    pose = np.eye(4)
+    pose[:3, :3], pose[:3, 3] = rot_yaw_tilt(0.7, 0.05), [12.5, -3.25, 1.75]
+    out = {}
+    for tag, xyz, pinv in (
+            ("identity", pixel_rule_points(rng, 1 << 20, shape), np.eye(4)),
+            ("rotated", rng.uniform([-150, -150, -20], [150, 150, 20], (1 << 20, 3)),
+             np.linalg.inv(pose))):
+        x = torch.from_numpy(np.ascontiguousarray(xyz, np.float32)).to(dev)
+        t = torch.from_numpy(pinv.astype(np.float32)).to(dev)
+        pix, rng_k, packed, pix_p = sweep.pixel_rule(x, t, SWEEP_FOV, shape, proj, SWEEP_SCALE)
+        local = tp.apply_pose(x, t)
+        ppix, prng = tp.spherical_project(local, SWEEP_FOV, shape)
+        ppacked, ppix_p = tp._pack_points(local, torch.ones_like(x[:, 0], dtype=torch.bool),
+                                          SWEEP_FOV, proj, shape, SWEEP_SCALE)
+        differ = {"pix": int((pix != ppix).sum()), "pix_p": int((pix_p != ppix_p).sum()),
+                  "range": int((rng_k.view(torch.int32) != prng.view(torch.int32)).sum()),
+                  "packed": int((packed != ppacked).sum())}
+        azs = local[:, 1].double().atan2(local[:, 0].double()).cpu().numpy()
+        col_f = (np.degrees(azs) + SWEEP_FOV[1] / 2) * shape[1] / SWEEP_FOV[1]
+        out[tag] = {"points": int(x.shape[0]), "differ": differ,
+                    "column_edges": int((np.abs(col_f - np.floor(col_f) - 0.5) < 1e-4).sum()),
+                    "rows_clamped": int(((ppix // shape[1]) == 0).sum()
+                                        + ((ppix // shape[1]) == shape[0] - 1).sum()),
+                    "packed_negative": int((ppacked < 0).sum())}
+        if any(differ.values()):
+            raise AssertionError(f"pixel rule ({tag}): {differ} differ from the plain version")
+    return out
+
+
+def sweep_world(dev, n_map=400_000, K=12, S=30_000, seed=5):
+    """A survey on the card for the sweep cases, from a NumPy seed: a
+    400 000-point map (160 m x 160 m, 10 m cells of 256-slot blocks), 12
+    keyframes with tilted, yawed poses (keyframe 0 unrotated, a map point at
+    its origin: range 0), scans of 30 000 points (keyframe 1's all masked),
+    a random target subset and, as source images, the other points' winner
+    images (so the target lies in front of and behind them)."""
+    import torch
+
+    from ltm_torch.kernels import blocks
+    from ltm_torch.kernels.projection import rimg_shape
+
+    rng = np.random.default_rng(seed)
+    xyz = rng.uniform([-80, -80, -3], [80, 80, 8], (n_map, 3)).astype(np.float32)
+    poses = np.tile(np.eye(4), (K, 1, 1))
+    for k in range(1, K):
+        yaw, tilt = rng.uniform(0, 2 * np.pi), rng.normal(0, 0.03)
+        poses[k, :3, :3] = rot_yaw_tilt(yaw, tilt)
+    poses[:, :3, 3] = rng.uniform([-40, -40, 0], [40, 40, 2], (K, 3))
+    poses = poses.astype(np.float32)
+    xyz[0] = poses[0, :3, 3]
+    mask = rng.uniform(size=n_map) > 0.05
+    mask[0] = True
+    pose_inv = np.linalg.inv(poses.astype(np.float64)).astype(np.float32)
+    d = rng.normal(size=(K, S, 3))
+    d[..., 2] *= 0.25
+    scans = (d / np.linalg.norm(d, axis=-1, keepdims=True) * rng.uniform(1, 90, (K, S, 1)))
+    smask = rng.uniform(size=(K, S)) > 0.1
+    smask[1] = False
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    bm, ov, _ = blocks.build_block_map_with_slots(t(xyz), t(mask), 10.0, 4096, 256)
+    if ov:
+        raise AssertionError(f"sweep world: the block map overflowed ({ov})")
+    shape, proj = rimg_shape(SWEEP_FOV, 2.5), rimg_shape(SWEEP_FOV, 3.0)
+    kb = blocks.required_k_blocks(bm, poses[:, :3, 3], 60.0)
+    if kb >= bm.num_blocks:
+        raise AssertionError("sweep world: the range bound culls no block")
+    extra = t(rng.uniform(size=bm.mask.numel()) > 0.3)
+    pinv, pos = t(pose_inv), t(poses)
+    _, imgs = blocks.block_fused_visibility_images_plain(bm, ~extra, pinv, pos, SWEEP_FOV, shape,
+                                                         proj, k_blocks=bm.num_blocks,
+                                                         max_range=400.0, scale=SWEEP_SCALE)
+    return dict(bm=bm, pinv=pinv, poses=pos, scans=t(scans.astype(np.float32)), smask=t(smask),
+                kb=kb, extra=extra, imgs=imgs, shape=shape, proj=proj)
+
+
+def sweep_call(w, fn, K=None, k_blocks=None, max_range=60.0, reverse=False, sel=None):
+    """(args, kwargs) of ``blocks.<fn>`` on the first K keyframes of a
+    sweep world."""
+    K = w["pinv"].shape[0] if K is None else K
+    kb = w["kb"] if k_blocks is None else k_blocks
+    bm, pinv, poses = w["bm"], w["pinv"][:K], w["poses"][:K]
+    disc = dict(diff_threshold=0.1, reverse=reverse)
+    if fn == "block_sweep_discrepancy":
+        return ((bm, w["scans"][:K], w["smask"][:K], pinv, poses, SWEEP_FOV, w["shape"]),
+                dict(disc, k_blocks=kb, max_range=max_range))
+    if fn == "block_sweep_discrepancy_vs_images":
+        return ((bm, w["extra"], w["imgs"][:K], pinv, poses, SWEEP_FOV, w["shape"]),
+                dict(disc, k_blocks=kb, max_range=max_range))
+    if fn == "block_sweep_discrepancy_vs_images_presel":
+        return ((bm, w["extra"], w["imgs"][:K], pinv, sel[0][:K], sel[1][:K], SWEEP_FOV,
+                 w["shape"]), disc)
+    return ((bm, w["extra"], pinv, poses, SWEEP_FOV, w["shape"], w["proj"]),
+            dict(k_blocks=kb, max_range=max_range, scale=SWEEP_SCALE))
+
+
+def phase_sweep_cases(dev):
+    """Phase 2, K2 and K3: the pixel rule on 2^21 points, then each of the
+    four sweeps through its kernel against its plain version on the card,
+    bit for bit, with a second launch equal to the first: both ``reverse``
+    values, a ``presel`` list with padding entries, ``k_blocks ==
+    n_blocks``, a point at range 0 (never flagged, winning its pixel), an
+    all-masked keyframe, far-padded keyframes, K = 0 (nothing launched) and
+    keyframes forced into chunks.  Returns the cases' stats."""
+    import torch
+
+    from ltm_torch.dist.removert import _pad_poses_far
+    from ltm_torch.kernels import sweep
+    from ltm_torch.kernels.projection import NO_POINT
+
+    t0 = time.perf_counter()
+    out = {"pixel_rule": pixel_rule_case(dev)}
+    log(f"[2] sweep pixel rule: {json.dumps(out['pixel_rule'])}")
+    w = sweep_world(dev)
+    K, nb = w["pinv"].shape[0], w["bm"].num_blocks
+    s, v = sweep.select_blocks(w["bm"], w["poses"][:, :3, 3], 60.0, w["kb"])
+    presel = (torch.cat([s.flip(1), torch.zeros_like(s[:, :37])], 1),
+              torch.cat([v.flip(1), torch.zeros_like(v[:, :37])], 1))
+    fwd, vsi, pre, fus = SWEEP_FUNCS
+    k2, k3 = (1, 0), (0, 1)
+    cases = [(f"{fn.replace('block_', '')}_{'reverse' if r else 'forward'}", fn,
+              dict(reverse=r), k2) for fn in (fwd, vsi, pre) for r in (False, True)]
+    cases.append(("fused_visibility_images", fus, {}, k3))
+    for fn, launch in ((fwd, k2), (vsi, k2), (fus, k3)):
+        cases.append((f"{fn.replace('block_', '')}_all_blocks", fn,
+                      dict(k_blocks=nb, max_range=400.0), launch))
+    for fn in SWEEP_FUNCS:
+        cases.append((f"{fn.replace('block_', '')}_no_keyframes", fn, dict(K=0), (0, 0)))
+    stats = []
+    for name, fn, kw, launch in cases:
+        kw = dict(kw)
+        if fn == pre:
+            kw["sel"] = presel
+            kw.pop("k_blocks", None)
+        args, kwargs = sweep_call(w, fn, **kw)
+        st, got = compare_sweep(name, fn, args, kwargs, launch)
+        if kw.get("K") == 0:
+            res = got if isinstance(got, tuple) else (got,)
+            if res[0].shape != (w["bm"].mask.numel(),) or bool(res[0].any()):
+                raise AssertionError(f"{name}: K = 0 must give an all-False mask")
+            if len(res) > 1 and res[1].shape != (0, w["shape"][0] * w["shape"][1]):
+                raise AssertionError(f"{name}: K = 0 must give (0, n_pix) images")
+        elif st["flagged"] < 100:
+            raise AssertionError(f"{name}: only {st['flagged']} points flagged")
+        stats.append(st)
+    # keyframes forced into chunks of 5: a launch set a chunk
+    saved = sweep.MAX_KEYFRAMES
+    sweep.MAX_KEYFRAMES = 5
+    n = -(-K // 5)
+    try:
+        for fn, launch in ((fwd, (n, 0)), (vsi, (n, 0)), (fus, (0, n))):
+            args, kwargs = sweep_call(w, fn)
+            stats.append(compare_sweep(f"{fn.replace('block_', '')}_chunked", fn, args, kwargs,
+                                       launch)[0])
+    finally:
+        sweep.MAX_KEYFRAMES = saved
+    # far-padded keyframes (the mesh's padding): no block, nothing flagged
+    pinv, poses = _pad_poses_far(w["pinv"], w["poses"], 16)
+    pad = pinv.shape[0] - K
+    wp = dict(w, pinv=pinv, poses=poses,
+              scans=torch.cat([w["scans"], w["scans"].new_zeros((pad,) + w["scans"].shape[1:])]),
+              smask=torch.cat([w["smask"], w["smask"].new_zeros((pad, w["smask"].shape[1]))]),
+              imgs=torch.cat([w["imgs"], w["imgs"].new_full((pad, w["imgs"].shape[1]),
+                                                            NO_POINT)]))
+    for fn, launch in ((fwd, k2), (vsi, k2), (fus, k3)):
+        args, kwargs = sweep_call(wp, fn)
+        st, got = compare_sweep(f"{fn.replace('block_', '')}_far_padded", fn, args, kwargs,
+                                launch)
+        ref = compare_sweep("unpadded", fn, *sweep_call(w, fn), launch)[1]
+        a, b = host_bits(got), host_bits(ref)
+        if not np.array_equal(a[0], b[0]) or (len(a) > 1 and not (
+                np.array_equal(a[1][:K], b[1])
+                and (got[1][K:] == NO_POINT).all())):
+            raise AssertionError(f"{fn} far-padded: the padding changed the result")
+        stats.append(st)
+    # a point at range 0 (keyframe 0's origin) under an image that flags
+    # every pixel: never flagged, and it wins its proj pixel
+    flat = w["bm"].xyz.reshape(-1, 3)
+    slot = int(torch.nonzero((flat == w["poses"][0, :3, 3]).all(1)
+                             & w["bm"].mask.reshape(-1))[0])
+    w0 = dict(w, imgs=torch.full_like(w["imgs"], 50.0), extra=w["bm"].mask.reshape(-1))
+    st, got = compare_sweep("range_zero", vsi, *sweep_call(w0, vsi, K=1), k2)
+    win = compare_sweep("range_zero_winner", fus, *sweep_call(w0, fus, K=1), k3)[1][0]
+    if bool(got[slot]) or not bool(win[slot]) or st["flagged"] < 100:
+        raise AssertionError(f"range 0: flagged {bool(got[slot])}, wins {bool(win[slot])}")
+    stats.append(st)
+    for st in stats:
+        log(f"[2] {json.dumps(st)}")
+    out["cases"] = len(stats)
+    out["per_case"] = stats
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[2] sweep cases: {len(stats)} bit-equal to plain in {out['seconds']:.1f} s")
+    return out
+
+
+def sweep_recorder(calls):
+    """Stand-ins for the four sweeps under the names
+    ``ltm_torch.removert.pipeline`` imported: each runs the function and
+    appends (name, args, kwargs, result) to ``calls``."""
+    import ltm_torch.removert.pipeline as pipe
+
+    def wrap(name, fn):
+        def recording(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            calls.append((name, args, kwargs, out))
+            return out
+        return recording
+
+    return {name: wrap(name, getattr(pipe, name)) for name in SWEEP_FUNCS}
+
+
+@contextlib.contextmanager
+def pipeline_sweeps(route):
+    """Within the block, ``ltm_torch.removert.pipeline`` calls the sweeps
+    through ``route``: "kernel" (the public functions), "plain" (their
+    ``*_plain`` loops) or a {name: function} dict; the names are restored
+    after."""
+    import ltm_torch.removert.pipeline as pipe
+    from ltm_torch.kernels import blocks
+
+    if route == "kernel":
+        route = {name: getattr(blocks, name) for name in SWEEP_FUNCS}
+    elif route == "plain":
+        route = {name: getattr(blocks, name + "_plain") for name in SWEEP_FUNCS}
+    saved = {name: getattr(pipe, name) for name in SWEEP_FUNCS}
+    for name, fn in route.items():
+        setattr(pipe, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(pipe, name, fn)
+
+
+def sweep_work(fn, args, kwargs):
+    """{"points", "scan_points", "fp64_ops", "fp32_ops", "bytes", "bound_ms",
+    "bound_by"} of one sweep call: the live slots of every keyframe's selected blocks (and,
+    forward, the valid scan points), each projected once; its FP64
+    operations at the card's FP64 rate or its FP32 operations at the FP32
+    rate, whichever takes longer (the two pipes issue side by side),
+    against its bytes, each
+    input read once (the selected blocks' slots, the scans or the images,
+    the poses, a given list) and each output written once (the mask, K3's
+    images), at the memory rate."""
+    from ltm_torch.kernels import sweep
+
+    fwd, vsi, pre, fus = SWEEP_FUNCS
+    bm = args[0]
+    extra = None if fn == fwd else args[1]
+    if fn == pre:
+        pose_inv, sel, val = args[3:6]
+    else:
+        pose_inv, poses = args[2:4] if fn == fus else args[3:5]
+        valid = None
+        if fn == vsi:
+            valid = bm.block_valid & (bm.mask & extra.reshape(bm.mask.shape)).any(1)
+        sel, val = sweep.select_blocks(bm, poses[:, :3, 3], kwargs["max_range"],
+                                       kwargs["k_blocks"], valid=valid)
+    live = bm.mask[sel] & val[..., None]
+    if extra is not None:
+        live &= extra.reshape(bm.mask.shape)[sel]
+    points = int(live.sum())
+    K, cap = pose_inv.shape[0], bm.block_capacity
+    nbytes = (int(sel[val].unique().numel()) * cap * (13 + (extra is not None))
+              + bm.mask.numel() + K * 64 + (sel.numel() * 9 if fn == pre else 0))
+    fp64 = points * (SWEEP_FP64_POINT + 2 * (fn == fus))     # K3: a second row and column
+    fp32 = points * (SWEEP_FP32_POINT + 3 * (fn == fus))
+    scan_points = 0
+    if fn == fwd:
+        scans, smask = args[1:3]
+        scan_points = int(smask.sum())
+        fp64 += scan_points * SWEEP_FP64_SCAN
+        fp32 += scan_points * SWEEP_FP32_SCAN
+        nbytes += scans.numel() * 4 + smask.numel()
+    elif fn == fus:
+        shape = args[5]
+        nbytes += K * shape[0] * shape[1] * 4                 # the images written
+    else:
+        nbytes += args[2].numel() * 4                         # the images read
+    t_ops = max(fp64 / H100_FP64_FLOPS, fp32 / H100_FP32_FLOPS)    # separate pipes
+    t_bytes = nbytes / H100_BYTES_PER_S
+    return {"points": points, "scan_points": scan_points, "fp64_ops": fp64, "fp32_ops": fp32,
+            "bytes": nbytes, "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def time_sweep(fn, args, kwargs, reps=5):
+    """One sweep call through its kernel (the wrapper, by CUDA events,
+    median of ``reps``) and its plain version (once), with its work and
+    bound; the last kernel result must have the plain result's bits
+    (``differ``, ``max_abs_err``).  The timing launches leave the launch
+    counts as they were."""
+    from ltm_torch.kernels import blocks
+
+    out = {}
+
+    def run(route, f):
+        out[route] = f(*args, **kwargs)
+
+    saved = sweep_counts()
+    try:
+        ms = cuda_ms(lambda: run("kernel", getattr(blocks, fn)), reps=reps)
+        plain_ms = cuda_ms(lambda: run("plain", getattr(blocks, fn + "_plain")), reps=1)
+    finally:
+        set_sweep_counts(saved)
+    differ, err = sweep_diff(f"timed {fn}", out["kernel"], out["plain"])
+    if differ:
+        raise AssertionError(f"timed {fn}: {differ} entries differ from the plain version "
+                             f"(largest absolute difference {err})")
+    return dict(sweep_work(fn, args, kwargs), ms=ms, plain_ms=plain_ms, library_ms=None,
+                differ=differ, max_abs_err=err)
+
+
 def phase_card_vs_cpu(cfg):
     """Phase 3: ``Removerter.run`` on a small survey, CPU against card."""
     from ltm_torch.removert import Removerter
@@ -888,8 +1352,13 @@ def phase_default_config(cfg, brute_masks):
     sets must equal phase 4's brute-force run.  Then the high-dynamic scan
     extraction of ``_save_artifacts`` (the largest kNN call) is recorded too,
     and each recorded call is held to the plain version and timed against
-    its bound and the K1 yardstick.  Returns the per-call stats and the last
-    timed run."""
+    its bound and the K1 yardstick.  K2 and K3 must launch in every timed
+    run; the warm-up's sweep calls are recorded too, each held to its plain
+    version bit for bit (and to what the run got), the largest call of each
+    sweep timed against its bound and plain version, and one set of runs in
+    turns (plain sweeps, kernels, kernels, plain) gives the stage walls of
+    both.  Returns the per-call K4 stats, the last timed run and the sweep
+    stats."""
     import torch
 
     import ltm_torch.removert.pipeline as pipe
@@ -902,7 +1371,7 @@ def phase_default_config(cfg, brute_masks):
     os.environ["LTM_SYNC_STAGES"] = "1"
     full = workload(*FULL_WIDTH)
     rm = Removerter(cfg, device="cuda")
-    calls = []
+    calls, sweep_calls = [], []
     recording = chunk_recorder(cfg, calls, "full_width")
     runs = []
     for i in range(4):                     # run 0 warms up and records the calls
@@ -913,23 +1382,30 @@ def phase_default_config(cfg, brute_masks):
         torch.cuda.synchronize()
         chunk_knn_sqdists.launches = chunk_knn_sqdists.merges = 0
         knn2_sqdists.launches = knn2_sqdists.merges = 0
+        set_sweep_counts((0, 0))
         pipe.chunk_knn_sqdists = recording if i == 0 else chunk_knn_sqdists
         try:
-            t0 = time.perf_counter()
-            result = rm.run(*full)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+            with pipeline_sweeps(sweep_recorder(sweep_calls) if i == 0 else "kernel"):
+                t0 = time.perf_counter()
+                result = rm.run(*full)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
         finally:
             pipe.chunk_knn_sqdists = chunk_knn_sqdists
         if chunk_knn_sqdists.launches <= 0 or chunk_knn_sqdists.merges <= 0:
             raise AssertionError(f"the default-configuration run launched the chunk kNN scan "
                                  f"{chunk_knn_sqdists.launches} and its merge "
                                  f"{chunk_knn_sqdists.merges} times; both must run")
+        k2, k3 = sweep_counts()
+        if k2 <= 0 or k3 <= 0:
+            raise AssertionError(f"the default-configuration run launched K2 {k2} and K3 {k3} "
+                                 "times; both must run")
         n_kf = result.central.num_keyframes + result.query.num_keyframes
         fb = rm.chunk_knn_fallbacks
         runs.append({"run": i, "wall_s": wall, "keyframes_per_s": n_kf / wall,
                      "k4_launches": chunk_knn_sqdists.launches,
                      "k4_merge_launches": chunk_knn_sqdists.merges,
+                     "k2_launches": k2, "k3_launches": k3,
                      "knn2_launches": knn2_sqdists.launches,
                      "escalated_queries": sum(len(f["escalated"]) for f in fb),
                      "brute_forced_queries": sum(len(f["brute"]) for f in fb),
@@ -945,6 +1421,8 @@ def phase_default_config(cfg, brute_masks):
         "median_wall_s": statistics.median(r["wall_s"] for r in timed),
         "k4_launches_per_run": [r["k4_launches"] for r in timed],
         "k4_merge_launches_per_run": [r["k4_merge_launches"] for r in timed],
+        "k2_launches_per_run": [r["k2_launches"] for r in timed],
+        "k3_launches_per_run": [r["k3_launches"] for r in timed],
         "escalated_queries_per_run": [r["escalated_queries"] for r in timed],
         "brute_forced_queries_per_run": [r["brute_forced_queries"] for r in timed],
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
@@ -966,7 +1444,64 @@ def phase_default_config(cfg, brute_masks):
         st = compare_chunk(name, *args, timed=True, **kwargs)
         stats.append(st)
         log(f"[5] {json.dumps(st)}")
-    return stats, timed[-1]
+    return stats, timed[-1], phase5_sweeps(rm, full, sweep_calls, brute_masks)
+
+
+def phase5_sweeps(rm, full, sweep_calls, brute_masks):
+    """Phase 5's sweep checks: every sweep call of the warm-up run against
+    its plain version (and the run's own result), the largest call of each
+    sweep timed, and one set of runs in turns (plain, kernel, kernel,
+    plain) with its stage walls; each turn's 14 sets must be phase 4's."""
+    import torch
+
+    from ltm_torch.utils import reset_stage_times, stage_times
+
+    if {c[0] for c in sweep_calls} != set(SWEEP_FUNCS) - {SWEEP_FUNCS[2]}:
+        raise AssertionError(f"phase 5 made sweep calls {sorted({c[0] for c in sweep_calls})}")
+    per_call, largest = [], {}
+    for i, (fn, args, kwargs, out) in enumerate(sweep_calls):
+        st, got = compare_sweep(f"phase5_{i}", fn, args, kwargs)
+        if any(not np.array_equal(x, y) for x, y in zip(host_bits(out), host_bits(got))):
+            raise AssertionError(f"phase 5 sweep call {i} ({fn}): the run's result differs")
+        K = args[2 if fn == SWEEP_FUNCS[3] else 3].shape[0]
+        size = K * kwargs["k_blocks"]
+        st.update(keyframes=K, k_blocks=kwargs["k_blocks"], reverse=kwargs.get("reverse"))
+        per_call.append(st)
+        if fn not in largest or size > largest[fn][0]:
+            largest[fn] = (size, i, args, kwargs)
+    timed = {}
+    for fn, (_, i, args, kwargs) in largest.items():
+        timed[fn] = dict(time_sweep(fn, args, kwargs), call=i, keyframes=per_call[i]["keyframes"],
+                         k_blocks=kwargs["k_blocks"])
+        log(f"[5] sweep {fn}, largest call: {json.dumps(timed[fn])}")
+    turns = []
+    from ltm_torch.removert.pipeline import MASK_NAMES
+
+    for route in ("plain", "kernel", "kernel", "plain"):
+        reset_stage_times()
+        torch.cuda.synchronize()
+        set_sweep_counts((0, 0))
+        with pipeline_sweeps(route):
+            t0 = time.perf_counter()
+            res = rm.run(*full)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        k2, k3 = sweep_counts()
+        if (route == "kernel") != (k2 > 0 and k3 > 0) or (route == "plain" and k2 + k3):
+            raise AssertionError(f"phase 5 {route} turn: K2 {k2}, K3 {k3} launch sets")
+        diff = [n for n in MASK_NAMES
+                if not np.array_equal(res.masks[n].cpu().numpy(), brute_masks[n])]
+        if diff:
+            raise AssertionError(f"phase 5 {route} turn: sets {diff} differ from phase 4's")
+        stages = stage_times()
+        turns.append({"route": route, "wall_s": wall, "k2_launches": k2, "k3_launches": k3,
+                      "stages_s": {k: stages.get(k) for k in (
+                          "removert.strong_weak", "removert.project_static",
+                          "removert.high_dynamic")}})
+        log(f"[5] sweep turn: {json.dumps(turns[-1])}")
+    set_sweep_counts((0, 0))
+    log(f"[5] {len(per_call)} sweep calls of the warm-up run bit-equal to plain")
+    return {"calls": len(per_call), "per_call": per_call, "largest": timed, "turns": turns}
 
 
 def phase_cli(device="cuda"):
@@ -1578,7 +2113,10 @@ class OptinLoops:
     and keeps the largest call of each, by patching the names their callers
     read; ``time_all`` then times each kept call by CUDA events against its
     bound: its bytes (``optin_work``) or the operations it issues
-    (``issued_ops``), whichever takes longer."""
+    (``issued_ops``), whichever takes longer.  The presel sweep runs K2: it
+    is timed as ``time_sweep`` times a sweep, and while ``recorded`` is a
+    list each of its calls is appended there as (name, args, kwargs,
+    result)."""
 
     TARGETS = (("cull_blocks_vs_images", "ltm_torch.removert.pipeline"),
                ("block_sweep_discrepancy_vs_images_presel", "ltm_torch.removert.pipeline"),
@@ -1592,6 +2130,7 @@ class OptinLoops:
 
         self.calls = {name: 0 for name, _ in self.TARGETS}
         self.largest = {}
+        self.recorded = None
         self._saved = []
         for name, mod in self.TARGETS:
             m = importlib.import_module(mod)
@@ -1603,6 +2142,8 @@ class OptinLoops:
         def wrapped(*args, **kwargs):
             self.calls[name] += 1
             out = fn(*args, **kwargs)
+            if self.recorded is not None and name in SWEEP_FUNCS:
+                self.recorded.append((name, args, kwargs, out))
             # the call's size from its shapes alone (no host sync in a run);
             # calls on the CPU (the card-vs-CPU checks) are not kept
             size = sum(a.numel() for a in args[:6] if hasattr(a, "numel") and a.is_cuda)
@@ -1621,6 +2162,9 @@ class OptinLoops:
     def time_all(self):
         rows = {}
         for name, (fn, args, kwargs, _, out) in self.largest.items():
+            if name in SWEEP_FUNCS:     # K2: its own bound, and its plain loop
+                rows[name] = time_sweep(name, args, kwargs, reps=3)
+                continue
             work = optin_work(name, args, kwargs, out)
             ops = issued_ops(fn, args, kwargs)
             ms = cuda_ms(lambda: fn(*args, **kwargs), reps=3)
@@ -1698,11 +2242,6 @@ def optin_work(name, args, kwargs, out):
         bmin, _, _, pose_inv, imgs = args[:5]
         K, B, npix = pose_inv.shape[0], bmin.shape[0], imgs.shape[-1]
         return {"points": K * B, "bytes": B * 25 + K * 64 + K * npix * 4 + K * B}
-    if name == "block_sweep_discrepancy_vs_images_presel":
-        bm, _, imgs, pose_inv, sel, val = args[:6]
-        return {"points": int(val.sum()) * bm.block_capacity,
-                "bytes": union_slots(bm, sel, val) * 14 + imgs.numel() * 4 + sel.numel() * 9
-                + bm.mask.numel()}
     if name == "block_fused_phase_a":
         bm, _, pose_inv = args[:3]
         sel_a, sel_a_valid, packed, survive = out
@@ -1789,11 +2328,34 @@ def grid_refusal(cfg, res):
             "points_past_range": past, "in_range_overflow": 0, "raises": msg[:160]}
 
 
+def presel_vs_plain(calls):
+    """Every recorded presel sweep call of a culled run held to its plain
+    version on the card by ``compare_sweep`` (kernel, a second launch and
+    plain: the same bits; a launch set a chunk of keyframes) and to the
+    run's own result.  Returns the calls' stats."""
+    from ltm_torch.kernels import sweep
+
+    rows = []
+    for i, (fn, args, kwargs, out) in enumerate(calls):
+        K, k_sel = args[4].shape
+        n = -(-K // sweep.MAX_KEYFRAMES) if k_sel else 0
+        st, got = compare_sweep(f"optin_presel_{i}", fn, args, kwargs, (n, 0))
+        if sweep_diff(f"presel call {i}", out, got)[0]:
+            raise AssertionError(f"presel call {i}: the culled run's result differs")
+        st.update(keyframes=K, k_sel=k_sel, reverse=kwargs.get("reverse"))
+        rows.append(st)
+    if not any(st["k2_launches"] for st in rows):
+        raise AssertionError(f"the culled run launched K2 in none of its {len(rows)} presel calls")
+    return rows
+
+
 def phase_optin(cfg, brute_masks, phase5_run, lifelong_pair):
     """Phase 11: the opt-in configurations on the card.  (a) occlusion
     culling on phase 5's workload: the 14 masks bit-equal to phase 5's (=
-    phase 4's), stage walls beside phase 5's, near and far survivor blocks a
-    keyframe, and the grid kNN refused on that 1 200 m corridor
+    phase 4's), every presel sweep call of the warm-up run held to its
+    plain loop (``presel_vs_plain``), stage walls beside phase 5's, near
+    and far survivor blocks a keyframe, and the grid kNN refused on that
+    1 200 m corridor
     (``grid_refusal``); (b) the grid kNN on phase 10's first session pair
     at full width: the 14 masks equal the brute path's, each of whose K1
     calls is held to the plain version, the ND call timed through the
@@ -1826,8 +2388,9 @@ def phase_optin(cfg, brute_masks, phase5_run, lifelong_pair):
     try:
         # (a) occlusion culling
         rm = Removerter(dataclasses.replace(cfg, use_occlusion_culling=True), device="cuda")
-        runs = []
-        for i in range(2):                 # run 0 warms up
+        runs, presel_calls = [], []
+        for i in range(2):                 # run 0 warms up; its presel calls are recorded
+            loops.recorded = presel_calls if i == 0 else None
             loops.reset_counts()
             reset_stage_times()
             t0 = time.perf_counter()
@@ -1839,11 +2402,18 @@ def phase_optin(cfg, brute_masks, phase5_run, lifelong_pair):
                 if not np.array_equal(res.masks[n].cpu().numpy(), brute_masks[n])]
         if diff:
             raise AssertionError(f"occlusion culling changed sets {diff}")
+        presel = presel_vs_plain(presel_calls)
+        del presel_calls
+        for st in presel:
+            log(f"[11a] presel vs plain: {json.dumps(st)}")
         summary["a_occlusion"] = {
             "wall_s": runs[1]["wall_s"], "stages_s": runs[1]["stages_s"],
             "phase5_wall_s": phase5_run["wall_s"], "phase5_stages_s": phase5_run["stages_s"],
             "calls_per_run": runs[1]["calls"], "masks_equal_phase5": True,
-            "survivors": rm.occlusion_stats}
+            "survivors": rm.occlusion_stats,
+            "presel_vs_plain": {"calls": len(presel), "differ": sum(st["differ"] for st in presel),
+                                "max_abs_err": max(st["max_abs_err"] for st in presel),
+                                "k2_launches": sum(st["k2_launches"] for st in presel)}}
         log(f"[11a] {json.dumps(summary['a_occlusion'])}")
         summary["a_occlusion"]["grid_on_corridor"] = grid_refusal(cfg, res)
         log(f"[11a] grid kNN on the corridor: "
@@ -1996,12 +2566,15 @@ def phase_headline():
     ``block_sweep_discrepancy``: a 5 M-point corridor map (2 km, seed 0), 32
     keyframes x 65 536 points clamped at 120 m, a 20 480 x 256 block map at
     40 m cells, ``k_blocks`` exact at 120.2 m.  One warm-up and three timed
-    sweeps; ``removert_visibility_keyframes_per_s_5M_map`` is 32 over the
-    mean sweep, as bench computes it."""
+    sweeps (K2 must launch in each); ``removert_visibility_keyframes_per_s_5M_map``
+    is 32 over the mean sweep, as bench computes it.  Then the sweep in
+    turns through the plain loop and K2 (plain, kernel, kernel, plain), and
+    K2's time by CUDA events against its bound."""
     import torch
 
     from ltm_torch.kernels.blocks import (
         block_sweep_discrepancy,
+        block_sweep_discrepancy_plain,
         build_block_map,
         required_k_blocks_np,
     )
@@ -2040,22 +2613,48 @@ def phase_headline():
     if k_blocks >= bm.num_blocks:
         raise AssertionError(f"headline k_blocks {k_blocks} culls nothing")
 
-    def run():
-        out = block_sweep_discrepancy(bm, scans, smask, pose_inv, poses_t, fov, shape,
-                                      k_blocks=k_blocks, max_range=max_range,
-                                      diff_threshold=0.1, reverse=False)
-        return int(out.sum())
+    args = (bm, scans, smask, pose_inv, poses_t, fov, shape)
+    kwargs = dict(k_blocks=k_blocks, max_range=max_range, diff_threshold=0.1, reverse=False)
 
-    flagged = run()
+    first = block_sweep_discrepancy(*args, **kwargs)
+    flagged = int(first.sum())
+
+    def run(fn=block_sweep_discrepancy):
+        """The sweep, synced, held bit for bit to the warm-up's mask:
+        (entries that differ, largest absolute difference)."""
+        out = fn(*args, **kwargs)
+        diff = sweep_diff("headline sweep", out, first)
+        torch.cuda.synchronize()
+        return diff
+
     dts = []
     for _ in range(3):
+        set_sweep_counts((0, 0))
         t0 = time.perf_counter()
-        if run() != flagged:
-            raise AssertionError("headline sweep: the flagged count changed between runs")
+        if run()[0]:
+            raise AssertionError("headline sweep: the mask changed between runs")
         dts.append(time.perf_counter() - t0)
+        if sweep_counts()[0] <= 0:
+            raise AssertionError("headline sweep: K2 did not launch in a timed sweep")
+    turns = []
+    for route in ("plain", "kernel", "kernel", "plain"):
+        fn = block_sweep_discrepancy_plain if route == "plain" else block_sweep_discrepancy
+        set_sweep_counts((0, 0))
+        t0 = time.perf_counter()
+        differ, err = run(fn)
+        wall = time.perf_counter() - t0
+        if differ:
+            raise AssertionError(f"headline sweep ({route}): {differ} entries differ from the "
+                                 f"kernel's warm-up mask")
+        if (route == "kernel") != (sweep_counts()[0] > 0):
+            raise AssertionError(f"headline sweep ({route}): {sweep_counts()[0]} K2 launches")
+        turns.append({"route": route, "sweep_s": wall, "keyframes_per_s": k_frames / wall,
+                      "differ": differ, "max_abs_err": err})
+    set_sweep_counts((0, 0))
     st = {"removert_visibility_keyframes_per_s_5M_map": k_frames / statistics.mean(dts),
           "sweep_s": dts, "flagged": flagged, "k_blocks": k_blocks,
-          "n_blocks": bm.num_blocks, "block_build_s": build_s}
+          "n_blocks": bm.num_blocks, "block_build_s": build_s, "turns": turns,
+          "k2": time_sweep("block_sweep_discrepancy", args, kwargs)}
     if not 0 < flagged < n_map:
         raise AssertionError(f"headline sweep flagged {flagged} points")
     log(f"[12] {json.dumps(st)}")
@@ -2819,6 +3418,7 @@ def main() -> int:
     phase_build()
     km = phase_kernel_cases(dev)
     km4 = phase_chunk_cases(dev)
+    sweep_cases = phase_sweep_cases(dev)
 
     cfg = RemovertConfig()
     cfg.downsample_voxel_size = 0.1
@@ -2827,7 +3427,7 @@ def main() -> int:
     brute.downsample_voxel_size = 0.1
     brute.use_chunk_knn = False    # phase 4 is the brute-force path (K1) by design
     calls, last_run, brute_masks = phase_full_width(brute)
-    k4_calls, k4_run = phase_default_config(cfg, brute_masks)
+    k4_calls, k4_run, sweeps5 = phase_default_config(cfg, brute_masks)
     phase_cli()
     slam = {"card_vs_cpu": phase_slam_card_vs_cpu()}
     slam["full_width"], slam_full = phase_slam_full_width()
@@ -2906,6 +3506,54 @@ def main() -> int:
         "km_offset_bound_ms": km4["bound_ms"],
         "km_offset_k1_yardstick_ms": km4["k1_yardstick_ms"],
     }]
+    fwd5 = sweeps5["largest"]["block_sweep_discrepancy"]
+    vsi5 = sweeps5["largest"]["block_sweep_discrepancy_vs_images"]
+    fus5 = sweeps5["largest"]["block_fused_visibility_images"]
+    head = headline["k2"]
+    # the largest absolute difference from the plain version that the run
+    # measured: phase 2's cases, phase 5's calls and timed calls, phase 11a's
+    # presel calls, phase 12's turns and timed call
+    compared = sweep_cases["per_case"] + sweeps5["per_call"]
+    errs = {fn: [st["max_abs_err"] for st in compared if st["function"] == fn]
+            for fn in SWEEP_FUNCS}
+    for fn, st in sweeps5["largest"].items():
+        errs[fn].append(st["max_abs_err"])
+    errs[SWEEP_FUNCS[2]].append(optin["a_occlusion"]["presel_vs_plain"]["max_abs_err"])
+    errs[SWEEP_FUNCS[0]] += [t["max_abs_err"] for t in headline["turns"]] + [head["max_abs_err"]]
+    k2_err = max(max(errs[fn]) for fn in SWEEP_FUNCS[:3])
+    k3_err = max(errs[SWEEP_FUNCS[3]])
+    common = {"route": "cuda", "source": "ltm_torch/csrc/sweep.cu",
+              "launches_path": "phase 5 (RemovertConfig() defaults): launch sets, one a chunk "
+                               "of up to 64 keyframes",
+              "library_ms": None}
+    kernels += [dict(common, **{
+        "name": "block_sweep_discrepancy (K2)",
+        "route_kernels": ["k2_scan_min (scan ranges into each keyframe's image; forward sweeps)",
+                          "k2_map_min (selected blocks' slots into each keyframe's map image)",
+                          "k2_flag (winner and diff test, OR into the block layout)"],
+        "replaces": "ltm/kernels/blocks.py:222",
+        "also_replaces": ["ltm/kernels/blocks.py:330", "ltm/kernels/blocks.py:375"],
+        "launches": k4_run["k2_launches"],
+        "max_abs_err": k2_err,
+        "presel_calls_compared": optin["a_occlusion"]["presel_vs_plain"]["calls"],
+        "ms": fwd5["ms"], "plain_ms": fwd5["plain_ms"], "bound_ms": fwd5["bound_ms"],
+        "bound_by": fwd5["bound_by"],
+        "vs_images_ms": vsi5["ms"], "vs_images_plain_ms": vsi5["plain_ms"],
+        "vs_images_bound_ms": vsi5["bound_ms"], "vs_images_bound_by": vsi5["bound_by"],
+        "headline_ms": head["ms"], "headline_plain_ms": head["plain_ms"],
+        "headline_bound_ms": head["bound_ms"], "headline_bound_by": head["bound_by"],
+        "phase5_calls": sweeps5["calls"], "cases": sweep_cases["cases"],
+    }), dict(common, **{
+        "name": "block_fused_visibility_images (K3)",
+        "route_kernels": ["k3_packed<false> (packed int32 scatter-min at the proj resolution)",
+                          "k3_packed<true> (winner test, OR into the block layout)",
+                          "k3_decode (each pixel's winner into the filter-resolution image)"],
+        "replaces": "ltm/kernels/blocks.py:537",
+        "launches": k4_run["k3_launches"],
+        "max_abs_err": k3_err,
+        "ms": fus5["ms"], "plain_ms": fus5["plain_ms"], "bound_ms": fus5["bound_ms"],
+        "bound_by": fus5["bound_by"],
+    })]
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"slam": slam}))

@@ -9,6 +9,12 @@ bound is sound (see ``ltm.kernels.blocks`` for the exactness argument and
 ``ltm_torch.removert.pipeline`` for the per-sweep bounds).
 ``required_k_blocks_np`` sizes the block budget so no in-range block is
 ever truncated.
+
+The four sweeps of the default path (``block_sweep_discrepancy``,
+``block_sweep_discrepancy_vs_images``, ``..._presel`` and
+``block_fused_visibility_images``) launch the hand-written kernels K2 and
+K3 (``ltm_torch.kernels.sweep``) on CUDA tensors, and run their plain
+versions, one loop iteration a keyframe (``*_plain``), on CPU tensors.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ltm_torch.kernels import sweep
 from ltm_torch.kernels.occlusion import block_rect_and_rmin, build_range_pyramid, footprint_max
 from ltm_torch.kernels.projection import (
     _PACKED_SENTINEL,
@@ -40,7 +47,9 @@ __all__ = ["BlockMap", "build_block_map", "build_block_map_with_slots",
            "block_sweep_visibility",
            "block_sweep_discrepancy_vs_images", "block_fused_visibility_images",
            "block_sweep_discrepancy_vs_images_presel",
-           "block_fused_phase_a", "block_fused_phase_b"]
+           "block_fused_phase_a", "block_fused_phase_b", "block_sweep_discrepancy_plain",
+           "block_sweep_discrepancy_vs_images_plain", "block_fused_visibility_images_plain",
+           "block_sweep_discrepancy_vs_images_presel_plain"]
 
 
 class BlockMap(NamedTuple):
@@ -181,11 +190,28 @@ def _select_blocks(bm: BlockMap, origin: torch.Tensor, max_range: float, k_block
     return idx, torch.isfinite(vals)
 
 
+def _plain(bm: BlockMap) -> bool:
+    """CPU tensors take a sweep's plain version; CUDA tensors its kernel
+    (``sweep`` raises on any other device)."""
+    return bm.xyz.device.type == "cpu"
+
+
 def block_sweep_discrepancy(bm: BlockMap, scans_xyz, scans_mask, pose_inv, poses,
                             fov, shape, k_blocks: int, max_range: float = 200.0,
                             diff_threshold: float = 0.1, reverse: bool = False):
     """Block-local ``sweep_discrepancy``; returns the flat
-    (n_blocks*block_capacity,) dynamic mask over the blocked layout."""
+    (n_blocks*block_capacity,) dynamic mask over the blocked layout.  K2 on
+    CUDA tensors, :func:`block_sweep_discrepancy_plain` on CPU tensors."""
+    run = block_sweep_discrepancy_plain if _plain(bm) else sweep.block_sweep_discrepancy
+    return run(bm, scans_xyz, scans_mask, pose_inv, poses, fov, shape, k_blocks,
+               max_range=max_range, diff_threshold=diff_threshold, reverse=reverse)
+
+
+def block_sweep_discrepancy_plain(bm: BlockMap, scans_xyz, scans_mask, pose_inv, poses,
+                                  fov, shape, k_blocks: int, max_range: float = 200.0,
+                                  diff_threshold: float = 0.1, reverse: bool = False):
+    """The plain version of :func:`block_sweep_discrepancy`, on either
+    device: one ``discrepancy_mask`` a keyframe over its selected blocks."""
     out = torch.zeros_like(bm.mask)
     for scan_xyz, scan_mask, Tinv, T in zip(scans_xyz, scans_mask, pose_inv, poses):
         sel, sel_valid = _select_blocks(bm, T[:3, 3], max_range, k_blocks)
@@ -267,7 +293,21 @@ def block_sweep_discrepancy_vs_images(target_bm: BlockMap, target_extra, scan_im
                                       diff_threshold: float = 0.1, reverse: bool = False):
     """Target-side strong-weak filter sweep against precomputed source
     images.  Selection restricts to blocks CONTAINING target (delta) points
-    — exact, since an empty block contributes nothing."""
+    — exact, since an empty block contributes nothing.  K2 on CUDA tensors,
+    :func:`block_sweep_discrepancy_vs_images_plain` on CPU tensors."""
+    run = (block_sweep_discrepancy_vs_images_plain if _plain(target_bm)
+           else sweep.block_sweep_discrepancy_vs_images)
+    return run(target_bm, target_extra, scan_imgs, pose_inv, poses, fov, shape, k_blocks,
+               max_range=max_range, diff_threshold=diff_threshold, reverse=reverse)
+
+
+def block_sweep_discrepancy_vs_images_plain(target_bm: BlockMap, target_extra, scan_imgs,
+                                            pose_inv, poses, fov, shape, k_blocks: int,
+                                            max_range: float = 200.0,
+                                            diff_threshold: float = 0.1,
+                                            reverse: bool = False):
+    """The plain version of :func:`block_sweep_discrepancy_vs_images`, one
+    ``discrepancy_vs_image`` a keyframe."""
     t_extra = target_extra.reshape(target_bm.num_blocks, target_bm.block_capacity)
     occupied = target_bm.block_valid & torch.any(target_bm.mask & t_extra, dim=1)
     sel_bm = target_bm._replace(block_valid=occupied)
@@ -287,10 +327,23 @@ def block_fused_visibility_images(source_bm: BlockMap, source_extra, pose_inv, p
                                   max_range: float, scale: float):
     """Block-local fused winner pass: per keyframe ONE packed scatter-min
     yields both the winner (visibility) mask and the filter-resolution
-    winner image.  Returns ``(win_union_flat, (K, nrow*ncol) images)``."""
+    winner image.  Returns ``(win_union_flat, (K, nrow*ncol) images)``.
+    K3 on CUDA tensors, :func:`block_fused_visibility_images_plain` on CPU
+    tensors."""
+    run = (block_fused_visibility_images_plain if _plain(source_bm)
+           else sweep.block_fused_visibility_images)
+    return run(source_bm, source_extra, pose_inv, poses, fov, shape, proj_shape, k_blocks,
+               max_range=max_range, scale=scale)
+
+
+def block_fused_visibility_images_plain(source_bm: BlockMap, source_extra, pose_inv, poses,
+                                        fov, shape, proj_shape, k_blocks: int,
+                                        max_range: float, scale: float):
+    """The plain version of :func:`block_fused_visibility_images`, one
+    ``packed_winner_image`` a keyframe (K = 0 gives (0, nrow*ncol) images)."""
     s_extra = source_extra.reshape(source_bm.num_blocks, source_bm.block_capacity)
     out = torch.zeros_like(source_bm.mask)
-    imgs = []
+    imgs = [source_bm.xyz.new_empty((0, shape[0] * shape[1]))]
     for Tinv, T in zip(pose_inv, poses):
         sel, sel_valid = _select_blocks(source_bm, T[:3, 3], max_range, k_blocks)
         work_xyz = source_bm.xyz[sel].reshape(-1, 3)
@@ -298,8 +351,8 @@ def block_fused_visibility_images(source_bm: BlockMap, source_extra, pose_inv, p
         local = apply_pose(work_xyz, Tinv)
         win, img = packed_winner_image(local, work_mask, fov, proj_shape, shape, scale)
         out[sel] |= win.reshape(k_blocks, source_bm.block_capacity)
-        imgs.append(img)
-    return out.reshape(-1), torch.stack(imgs)
+        imgs.append(img[None])
+    return out.reshape(-1), torch.cat(imgs)
 
 
 def _spare_row(mask: torch.Tensor) -> torch.Tensor:
@@ -318,7 +371,22 @@ def block_sweep_discrepancy_vs_images_presel(target_bm: BlockMap, target_extra, 
     instead of the in-loop range-ball top-k: ``sel_idx``/``sel_valid`` are
     (K, k_sel).  Exactness is the caller's contract: every block that could
     flag a point for keyframe k is in ``sel_idx[k]``.  With images of the
-    actual scans it is also the culled forward (high-dynamic) sweep."""
+    actual scans it is also the culled forward (high-dynamic) sweep.  K2 on
+    CUDA tensors, :func:`block_sweep_discrepancy_vs_images_presel_plain` on
+    CPU tensors."""
+    run = (block_sweep_discrepancy_vs_images_presel_plain if _plain(target_bm)
+           else sweep.block_sweep_discrepancy_vs_images_presel)
+    return run(target_bm, target_extra, scan_imgs, pose_inv, sel_idx, sel_valid, fov, shape,
+               diff_threshold=diff_threshold, reverse=reverse)
+
+
+def block_sweep_discrepancy_vs_images_presel_plain(target_bm: BlockMap, target_extra,
+                                                   scan_imgs, pose_inv, sel_idx, sel_valid,
+                                                   fov, shape, diff_threshold: float = 0.1,
+                                                   reverse: bool = False):
+    """The plain version of
+    :func:`block_sweep_discrepancy_vs_images_presel`, one
+    ``discrepancy_vs_image`` a keyframe."""
     nb, cap = target_bm.num_blocks, target_bm.block_capacity
     t_extra = target_extra.reshape(nb, cap)
     out = _spare_row(target_bm.mask)
@@ -348,6 +416,12 @@ def block_fused_phase_a(source_bm: BlockMap, source_extra, pose_inv, poses, fov,
     r_near_t = torch.tensor(r_near, dtype=torch.float32, device=source_bm.xyz.device)
     slack = torch.tensor(2.0 / scale, dtype=torch.float32, device=source_bm.xyz.device)
     sels, vals, imgs, survs = [], [], [], []
+    if pose_inv.shape[0] == 0:     # ltm's empty scan: (0, k_near), (0, n_pix_p), (0, n_blocks)
+        dev = source_bm.xyz.device
+        return (torch.zeros((0, k_near), dtype=torch.long, device=dev),
+                torch.zeros((0, k_near), dtype=torch.bool, device=dev),
+                torch.zeros((0, n_pix_p), dtype=torch.int32, device=dev),
+                torch.zeros((0, source_bm.num_blocks), dtype=torch.bool, device=dev))
     for Tinv, T in zip(pose_inv, poses):
         origin = T[:3, 3]
         sel, sel_valid = _select_blocks(source_bm, origin, r_near, k_near)
@@ -385,7 +459,7 @@ def block_fused_phase_b(source_bm: BlockMap, source_extra, pose_inv, packed_imgs
     nb, cap = source_bm.num_blocks, source_bm.block_capacity
     s_extra = source_extra.reshape(nb, cap)
     out = _spare_row(source_bm.mask)
-    imgs = []
+    imgs = [source_bm.xyz.new_empty((0, shape[0] * shape[1]))]   # K = 0 gives (0, n_pix)
     for Tinv, img_p, bsel, bval, absel, abval in zip(pose_inv, packed_imgs, sel_b, sel_b_valid,
                                                      sel_ab, sel_ab_valid):
         # far survivors: one more packed scatter-min into the provisional image
@@ -401,5 +475,5 @@ def block_fused_phase_b(source_bm: BlockMap, source_extra, pose_inv, packed_imgs
                                        shape, scale)
         win = a_mask & (a_packed == img_p[a_pix])
         out[torch.where(abval, absel, nb)] |= win.reshape(-1, cap)
-        imgs.append(_decode_winner_image(img_p, proj_shape, shape, scale))
-    return out[:nb].reshape(-1), torch.stack(imgs)
+        imgs.append(_decode_winner_image(img_p, proj_shape, shape, scale)[None])
+    return out[:nb].reshape(-1), torch.cat(imgs)

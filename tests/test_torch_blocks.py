@@ -226,3 +226,37 @@ def test_block_keyframe_sweeps(sessions, keyframes, name):
     got = tb.block_sweep_discrepancy_projected(ts.bm, torch.from_numpy(~extra), ts.bm, *t, FOV,
                                                shape, proj, reverse=True, **kw)
     _assert_only_affected(ref, got, aff | _pixel_spread(aff, xyz, xyz, pinv, K, shape))
+
+
+@pytest.mark.parametrize("name", ["fused", "phase_a", "phase_b"])
+def test_no_keyframes_matches_ltm(sessions, name):
+    """K = 0: the winner passes return ``ltm``'s shapes and values (an
+    all-False mask, empty image stacks) instead of stacking nothing."""
+    js, ts, _ = sessions
+    shape, proj = jp.rimg_shape(FOV, 2.5), jp.rimg_shape(FOV, 3.0)
+    scale = float(2 ** 27) / 256.0
+    e4 = np.zeros((0, 4, 4), np.float32)
+    j = (js.bm, js.map_mask, jnp.asarray(e4))
+    t = (ts.bm, ts.map_mask, torch.from_numpy(e4))
+    if name == "fused":
+        kw = dict(k_blocks=8, max_range=50.0, scale=scale)
+        ref = jb.block_fused_visibility_images(*j, jnp.asarray(e4), FOV, shape, proj, **kw)
+        got = tb.block_fused_visibility_images(*t, torch.from_numpy(e4), FOV, shape, proj, **kw)
+    elif name == "phase_a":
+        kw = dict(k_near=8, r_near=20.0, scale=scale)
+        ref = jb.block_fused_phase_a(*j, jnp.asarray(e4), FOV, shape, proj, **kw)
+        got = tb.block_fused_phase_a(*t, torch.from_numpy(e4), FOV, shape, proj, **kw)
+    else:
+        n_pix_p = proj[0] * proj[1]
+        empty_sel = (np.zeros((0, 8), np.int32), np.zeros((0, 8), bool))
+        jsel = tuple(jnp.asarray(a) for a in empty_sel)
+        tsel = (torch.zeros((0, 8), dtype=torch.long), torch.zeros((0, 8), dtype=torch.bool))
+        ref = jb.block_fused_phase_b(*j, jnp.zeros((0, n_pix_p), jnp.int32), *jsel, *jsel, FOV,
+                                     shape, proj, scale=scale)
+        got = tb.block_fused_phase_b(*t, torch.zeros((0, n_pix_p), dtype=torch.int32), *tsel,
+                                     *tsel, FOV, shape, proj, scale=scale)
+    assert len(ref) == len(got)
+    for r, g in zip(ref, got):
+        r = np.asarray(r)
+        assert tuple(g.shape) == r.shape
+        np.testing.assert_array_equal(g.numpy().astype(r.dtype), r)
