@@ -32,8 +32,13 @@ sm_90a), then runs fourteen phases, each of which raises on failure:
      against ``spherical_project``/``_pack_points``, then the four block
      sweeps on both ``reverse`` values, a ``presel`` list with padding
      entries, ``k_blocks == n_blocks``, a point at range 0, an all-masked
-     keyframe, far-padded keyframes, K = 0 and forced keyframe chunks, each
-     launched twice and bit-equal to its ``*_plain`` loop;
+     keyframe, far-padded keyframes, K = 0, forced keyframe chunks and, at
+     a finer resolution, one case of the global variant a kernel and a
+     cluster of 8 CTAs, each launched twice and bit-equal to its
+     ``*_plain`` loop, and the cluster variant's device memory (no image
+     allocated); the solver's fixed-order scatter-sum
+     (``csrc/scatter.cu``) on a pose graph's shape, bit-equal to its plain
+     version;
   3. card vs CPU: ``Removerter.run`` on a small synthetic survey on the CPU
      (plain versions) and on the card (kernels); the 14 named point sets
      agree within max(2, 1e-4·|set|) points;
@@ -72,7 +77,9 @@ sm_90a), then runs fourteen phases, each of which raises on failure:
      sync on each side (outside the PCG's graph replays), the largest
      1-NN call against its bound and
      ``torch.cdist``, one run with 10 RS loops (ATE ≤ 0.10 m) and one at
-     ``odom_noise=4e-3`` (ATE ≤ 0.25 m);
+     ``odom_noise=4e-3`` (ATE ≤ 0.25 m); the scatter-sum kernel must
+     launch, and its largest calls of the warm-up run are held to the
+     plain version and timed against their bound and ``index_add_``;
   9. ``python -m ltm_torch.cli.ltmapper`` in a subprocess on session
      directories of 40 keyframes x 8 000 points a session: ``ltslam/``
      holds the eight trajectory files and ``removert/`` equals
@@ -120,7 +127,9 @@ sm_90a), then runs fourteen phases, each of which raises on failure:
      accepted loop set phase 8's, central poses within 0.01 m of phase 8's,
      ATE ≤ 0.10 m, its stage walls beside phase 8's; the sharded Scan
      Context distance, ICP farm and solver (both modes) at those shapes
-     against their one-device functions, and the solver's collectives an
+     against their one-device functions (the one-device solve of phase
+     8's graph twice, bit for bit; an ICP lane's result independent of its
+     batch), and the solver's collectives an
      LM step; phase 7's cut workload on 4 slots, card against CPU; and
      ``solve_sharded`` on 2 slots through a one-process NCCL group, bit for
      bit the same call without a group.
@@ -132,8 +141,8 @@ It prints the ``{"kernels": [...]}`` line, the ``{"slam": {...}}`` line
 (phases 7-9), the ``{"lifelong": ..., "optin": ..., "headline": ..., "mesh": ...,
 "slam_mesh": ...}`` line (phases 10-14), then the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.  The ``kernels`` line lists K1, K4, K2
-and K3.  The LT-SLAM path runs no hand kernel:
-its hot loops are PyTorch ops, measured in phase 8.  Without a
+and K3 (each with both variants) and the solver's scatter-sum; the rest of
+the LT-SLAM path's hot loops are PyTorch ops, measured in phase 8.  Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero
 and prints no result.  The port imports neither ``jax`` nor ``ltm``.
 """
@@ -753,6 +762,109 @@ def check_chunk_case(name, q, qm, bm, extra, kw):
     return st
 
 
+# ---- the solver's fixed-order scatter-sum -------------------------------------
+
+def scatter_index(plan):
+    """The index array of ``plan`` as ``index_add_`` takes it: each listed
+    contribution's row, and a spare row past the last for those no row
+    lists."""
+    import torch
+
+    counts = plan.rowptr[1:] - plan.rowptr[:-1]
+    rows = torch.repeat_interleave(torch.arange(counts.shape[0], device=counts.device),
+                                   counts.long())
+    idx = torch.full((plan.n_src,), counts.shape[0], dtype=torch.long, device=counts.device)
+    idx[plan.cols.long()] = rows
+    return idx
+
+
+def compare_scatter(name, src, plan, timed=False):
+    """``fixed_order_sum`` through its kernel on the card, a second launch,
+    and ``fixed_order_sum_plain`` on the same inputs: the same bits.  With
+    ``timed``: the kernel's ms (CUDA events, median of 5) against its bound
+    (its bytes, each read or written once, or its adds at the card's rate
+    for the type), the plain version's ms and ``index_add_``'s (the library
+    call; atomic, not a fixed order).  The launch count is restored."""
+    import torch
+
+    from ltm_torch.kernels.scatter import fixed_order_sum, fixed_order_sum_plain
+
+    saved = fixed_order_sum.launches
+    try:
+        got = fixed_order_sum(src, plan)
+        again = fixed_order_sum(src, plan)
+        plain = fixed_order_sum_plain(src, plan)
+        torch.cuda.synchronize()
+        differ, repeat = int((got != plain).sum()), int((got != again).sum())
+        err = float((got.double() - plain.double()).abs().max()) if differ else 0.0
+        if differ or repeat:
+            raise AssertionError(f"fixed_order_sum {name}: {differ} entries differ from the "
+                                 f"plain version (largest {err}), {repeat} between launches")
+        st = {"case": name, "src": list(src.shape), "dtype": str(src.dtype).split(".")[-1],
+              "rows": plan.rowptr.shape[0] - 1, "max_degree": plan.table.shape[1],
+              "differ": differ, "repeat_differ": repeat, "max_abs_err": err}
+        if timed:
+            idx = scatter_index(plan)
+            st["ms"] = cuda_ms(lambda: fixed_order_sum(src, plan), reps=5)
+            st["plain_ms"] = cuda_ms(lambda: fixed_order_sum_plain(src, plan), reps=1)
+            spare = got.shape[:-2] + (got.shape[-2] + 1, got.shape[-1])
+            st["library_ms"] = cuda_ms(
+                lambda: torch.zeros(spare, dtype=src.dtype, device=src.device)
+                .index_add_(-2, idx, src), reps=5)
+            size = src.element_size()
+            nbytes = (src.numel() + got.numel()) * size + 4 * (plan.n_src + plan.rowptr.numel())
+            rate = H100_FP32_FLOPS if src.dtype == torch.float32 else H100_FP64_FLOPS
+            t_ops, t_bytes = src.numel() / rate, nbytes / H100_BYTES_PER_S
+            st.update(bytes=nbytes, adds=src.numel(), bound_ms=1e3 * max(t_ops, t_bytes),
+                      bound_by="operations" if t_ops >= t_bytes else "bytes")
+    finally:
+        fixed_order_sum.launches = saved
+    return st
+
+
+def scatter_recorder(calls):
+    """A stand-in for the solver's ``fixed_order_sum`` that runs it and
+    keeps, for each row width, the call with the most contributions
+    (``calls``: {width name: (src, plan)}); a call inside a CUDA graph's
+    capture is not kept."""
+    import torch
+
+    from ltm_torch.kernels.scatter import fixed_order_sum
+
+    def recording(src, plan):
+        out = fixed_order_sum(src, plan)
+        if not torch.cuda.is_current_stream_capturing():
+            name = f"width_{src.shape[-1]}" + ("_lanes" if src.dim() > 2 else "")
+            if name not in calls or src.numel() > calls[name][0].numel():
+                calls[name] = (src.clone(), plan)
+        return out
+    return recording
+
+
+def scatter_cases(dev):
+    """Phase 2, the fixed-order scatter-sum: a pose graph's shape (1 026
+    variables: two odometry chains, priors, two anchors each touched by 600
+    anchored factors' ends, 8 % padding at variable 0), float32 and float64,
+    one lane and 12 lanes, each against its plain version bit for bit."""
+    import torch
+
+    from ltm_torch.kernels.scatter import plan_scatter
+
+    rng = np.random.default_rng(17)
+    V, n = 1026, 512
+    chain = np.concatenate([np.arange(0, n - 1), np.arange(n, 2 * n - 1)])
+    ends = np.concatenate([[0, n], chain, chain + 1, rng.integers(0, n, 600),
+                           rng.integers(n, 2 * n, 600), np.full(600, 2 * n),
+                           np.full(600, 2 * n + 1), np.zeros(200, np.int64)])
+    plan = plan_scatter(ends, V, dev)
+    out = []
+    for dtype in (torch.float32, torch.float64):
+        for shape in ((len(ends), 36), (len(ends), 6), (12, len(ends), 6)):
+            src = torch.from_numpy(rng.normal(size=shape)).to(dev, dtype)
+            out.append(compare_scatter(f"graph_{len(shape) - 1}d_{shape[-1]}", src, plan))
+    return out
+
+
 # ---- K2 and K3, the visibility sweeps --------------------------------------
 
 SWEEP_FOV = (50.0, 360.0)
@@ -770,16 +882,19 @@ SWEEP_FP64_SCAN, SWEEP_FP32_SCAN = 50, 9
 
 
 def sweep_counts():
-    """The launch counts of K2 and K3."""
+    """The launch sets of K2 and K3: (K2, K3) of the cluster variant, then
+    (K2, K3) of the global variant."""
     from ltm_torch.kernels import sweep
 
-    return sweep.discrepancy_sweep.launches, sweep.winner_sweep.launches
+    k2, k3 = sweep.discrepancy_sweep, sweep.winner_sweep
+    return k2.launches, k3.launches, k2.global_launches, k3.global_launches
 
 
-def set_sweep_counts(values):
+def set_sweep_counts(values=(0, 0, 0, 0)):
     from ltm_torch.kernels import sweep
 
-    sweep.discrepancy_sweep.launches, sweep.winner_sweep.launches = values
+    k2, k3 = sweep.discrepancy_sweep, sweep.winner_sweep
+    k2.launches, k3.launches, k2.global_launches, k3.global_launches = values
 
 
 def sweep_diff(name, got, want):
@@ -806,7 +921,9 @@ def compare_sweep(name, fn, args, kwargs, launches=None):
     """``blocks.<fn>`` through its kernel on the card, a second launch on
     the same inputs, and ``blocks.<fn>_plain`` on them: every output the
     same bits.  ``launches``: the (K2, K3) launch sets the kernel call must
-    make.  The launch counts are restored.  Returns stats (with the entries
+    make (the cluster variant's; four values, then the global variant's
+    too; the variant not named must not launch).  The launch counts are
+    restored.  Returns stats (with the entries
     that differ from plain and their largest absolute difference) and the
     result."""
     import torch
@@ -814,7 +931,7 @@ def compare_sweep(name, fn, args, kwargs, launches=None):
     from ltm_torch.kernels import blocks
 
     saved = sweep_counts()
-    set_sweep_counts((0, 0))
+    set_sweep_counts()
     try:
         got = getattr(blocks, fn)(*args, **kwargs)
         torch.cuda.synchronize()
@@ -829,12 +946,15 @@ def compare_sweep(name, fn, args, kwargs, launches=None):
     if differ or repeat:
         raise AssertionError(f"{name}: {differ} entries differ from the plain version (largest "
                              f"absolute difference {err}), {repeat} between two launches")
-    if launches is not None and made != tuple(launches):
-        raise AssertionError(f"{name}: (K2, K3) launch sets {made}, expected {tuple(launches)}")
+    want = None if launches is None else (tuple(launches) + (0, 0))[:4]
+    if want is not None and made != want:
+        raise AssertionError(f"{name}: (K2, K3, K2 global, K3 global) launch sets {made}, "
+                             f"expected {want}")
     mask = got[0] if isinstance(got, tuple) else got
     st = {"case": name, "function": fn, "flagged": int(mask.sum()), "differ": differ,
           "max_abs_err": err, "repeat_differ": repeat, "k2_launches": made[0],
-          "k3_launches": made[1]}
+          "k3_launches": made[1], "k2_global_launches": made[2],
+          "k3_global_launches": made[3]}
     return st, got
 
 
@@ -989,13 +1109,16 @@ def phase_sweep_cases(dev):
     bit for bit, with a second launch equal to the first: both ``reverse``
     values, a ``presel`` list with padding entries, ``k_blocks ==
     n_blocks``, a point at range 0 (never flagged, winning its pixel), an
-    all-masked keyframe, far-padded keyframes, K = 0 (nothing launched) and
-    keyframes forced into chunks.  Returns the cases' stats."""
+    all-masked keyframe, far-padded keyframes, K = 0 (nothing launched),
+    keyframes forced into chunks, and at a finer resolution one case of
+    each variant (global, and a cluster of 8); the cluster variant's peak
+    device memory against its outputs; then the fixed-order scatter-sum's
+    cases (``scatter_cases``).  Returns the cases' stats."""
     import torch
 
     from ltm_torch.dist.removert import _pad_poses_far
-    from ltm_torch.kernels import sweep
-    from ltm_torch.kernels.projection import NO_POINT
+    from ltm_torch.kernels import blocks, sweep
+    from ltm_torch.kernels.projection import NO_POINT, rimg_shape
 
     t0 = time.perf_counter()
     out = {"pixel_rule": pixel_rule_case(dev)}
@@ -1073,8 +1196,49 @@ def phase_sweep_cases(dev):
     if bool(got[slot]) or not bool(win[slot]) or st["flagged"] < 100:
         raise AssertionError(f"range 0: flagged {bool(got[slot])}, wins {bool(win[slot])}")
     stats.append(st)
+    # the cluster variant allocates its outputs and lists only: a call's
+    # peak rise, less its outputs, stays under half of one image a keyframe
+    out["device_memory"] = {}
+    for fn in (fwd, vsi, fus):
+        args, kwargs = sweep_call(w, fn)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res = getattr(blocks, fn)(*args, **kwargs)
+        torch.cuda.synchronize()
+        rise = torch.cuda.max_memory_allocated() - base
+        outputs = sum(t.numel() * t.element_size()
+                      for t in (res if isinstance(res, tuple) else (res,)))
+        image = K * w["shape"][0] * w["shape"][1] * 4
+        out["device_memory"][fn] = {"peak_rise_bytes": rise, "output_bytes": outputs,
+                                    "one_image_a_keyframe_bytes": image}
+        if rise - outputs >= image // 2:
+            raise AssertionError(f"{fn}: the call's peak rose {rise} bytes for {outputs} "
+                                 f"bytes of outputs: an image reached device memory")
+        del res
+    log(f"[2] sweep device memory: {json.dumps(out['device_memory'])}")
+    # one case a variant past the default sizes: at a finer filter resolution
+    # (250 x 1800, proj 300 x 2160) no cluster holds a forward sweep's two
+    # images or K3's (the global variant); the vs-images image takes 8 CTAs
+    fine, fine_p = rimg_shape(SWEEP_FOV, 5.0), rimg_shape(SWEEP_FOV, 6.0)
+    if (sweep._cluster_plan([fine, fine]) is not None
+            or sweep._cluster_plan([fine_p]) is not None
+            or sweep._cluster_plan([fine])[0] != 8):
+        raise AssertionError("the fine-resolution cases must take the global variant and a "
+                             "cluster of 8")
+    fine_imgs = blocks.block_fused_visibility_images_plain(
+        w["bm"], ~w["extra"], w["pinv"], w["poses"], SWEEP_FOV, fine, fine_p,
+        k_blocks=nb, max_range=400.0, scale=SWEEP_SCALE)[1]
+    wf = dict(w, shape=fine, proj=fine_p, imgs=fine_imgs)
+    for name, fn, launch in (("forward_global", fwd, (0, 0, 1, 0)),
+                             ("vs_images_cluster8", vsi, (1, 0)),
+                             ("fused_global", fus, (0, 0, 0, 1))):
+        stats.append(compare_sweep(name, fn, *sweep_call(wf, fn), launch)[0])
     for st in stats:
         log(f"[2] {json.dumps(st)}")
+    out["scatter"] = scatter_cases(dev)
+    for st in out["scatter"]:
+        log(f"[2] fixed_order_sum {json.dumps(st)}")
     out["cases"] = len(stats)
     out["per_case"] = stats
     out["seconds"] = time.perf_counter() - t0
@@ -1173,12 +1337,41 @@ def sweep_work(fn, args, kwargs):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+@contextlib.contextmanager
+def global_variant():
+    """Within the block the sweeps take the global variant at any size
+    (the first design's passes: a kernel a pass, images in device memory),
+    to measure it beside the cluster variant on the same calls."""
+    from ltm_torch.kernels import sweep
+
+    plan = sweep._cluster_plan
+    sweep._cluster_plan = lambda images: None
+    try:
+        yield
+    finally:
+        sweep._cluster_plan = plan
+
+
+def sweep_plans(fn, shape, proj=None):
+    """(CTAs a cluster, rows a band of each image) of the cluster variant
+    for a sweep at these image shapes, or None (the global variant)."""
+    from ltm_torch.kernels import sweep
+
+    fwd, vsi, pre, fus = SWEEP_FUNCS
+    images = {fwd: [shape, shape], fus: [proj]}.get(fn, [shape])
+    plan = sweep._cluster_plan(images)
+    return None if plan is None else {"cluster": plan[0], "band_rows": list(plan[1]),
+                                      "shared_bytes_a_cta": plan[2]}
+
+
 def time_sweep(fn, args, kwargs, reps=5):
     """One sweep call through its kernel (the wrapper, by CUDA events,
-    median of ``reps``) and its plain version (once), with its work and
-    bound; the last kernel result must have the plain result's bits
-    (``differ``, ``max_abs_err``).  The timing launches leave the launch
-    counts as they were."""
+    median of ``reps``), through the global variant (the same), and its
+    plain version (once), with its work and bound, and the device time of
+    each kernel of both variants (``device_profile``); the last result of
+    each variant must have the plain result's bits (``differ``,
+    ``max_abs_err``).  The timing launches leave the launch counts as they
+    were."""
     from ltm_torch.kernels import blocks
 
     out = {}
@@ -1187,17 +1380,26 @@ def time_sweep(fn, args, kwargs, reps=5):
         out[route] = f(*args, **kwargs)
 
     saved = sweep_counts()
+    kernels = {}
     try:
         ms = cuda_ms(lambda: run("kernel", getattr(blocks, fn)), reps=reps)
+        kernels["cluster"] = device_profile(lambda: run("kernel", getattr(blocks, fn)))
+        with global_variant():
+            global_ms = cuda_ms(lambda: run("global", getattr(blocks, fn)), reps=reps)
+            kernels["global"] = device_profile(lambda: run("global", getattr(blocks, fn)))
         plain_ms = cuda_ms(lambda: run("plain", getattr(blocks, fn + "_plain")), reps=1)
     finally:
         set_sweep_counts(saved)
     differ, err = sweep_diff(f"timed {fn}", out["kernel"], out["plain"])
-    if differ:
+    g_differ, g_err = sweep_diff(f"timed {fn}, global variant", out["global"], out["plain"])
+    if differ or g_differ:
         raise AssertionError(f"timed {fn}: {differ} entries differ from the plain version "
-                             f"(largest absolute difference {err})")
-    return dict(sweep_work(fn, args, kwargs), ms=ms, plain_ms=plain_ms, library_ms=None,
-                differ=differ, max_abs_err=err)
+                             f"(largest absolute difference {err}); global variant {g_differ}")
+    shapes = args[5:7] if fn == SWEEP_FUNCS[3] else (args[6 if fn != SWEEP_FUNCS[2] else 7],)
+    return dict(sweep_work(fn, args, kwargs), ms=ms, global_ms=global_ms, plain_ms=plain_ms,
+                library_ms=None, differ=differ, max_abs_err=max(err, g_err),
+                cluster_plan=sweep_plans(fn, shapes[0], shapes[-1]),
+                device_ms={v: p["top_device_ms"] for v, p in kernels.items()})
 
 
 def phase_card_vs_cpu(cfg):
@@ -1382,7 +1584,7 @@ def phase_default_config(cfg, brute_masks):
         torch.cuda.synchronize()
         chunk_knn_sqdists.launches = chunk_knn_sqdists.merges = 0
         knn2_sqdists.launches = knn2_sqdists.merges = 0
-        set_sweep_counts((0, 0))
+        set_sweep_counts()
         pipe.chunk_knn_sqdists = recording if i == 0 else chunk_knn_sqdists
         try:
             with pipeline_sweeps(sweep_recorder(sweep_calls) if i == 0 else "kernel"):
@@ -1396,16 +1598,18 @@ def phase_default_config(cfg, brute_masks):
             raise AssertionError(f"the default-configuration run launched the chunk kNN scan "
                                  f"{chunk_knn_sqdists.launches} and its merge "
                                  f"{chunk_knn_sqdists.merges} times; both must run")
-        k2, k3 = sweep_counts()
-        if k2 <= 0 or k3 <= 0:
+        k2, k3, k2g, k3g = sweep_counts()
+        if k2 <= 0 or k3 <= 0 or k2g or k3g:
             raise AssertionError(f"the default-configuration run launched K2 {k2} and K3 {k3} "
-                                 "times; both must run")
+                                 f"times (global variant {k2g}, {k3g}); both must run as "
+                                 "clusters")
         n_kf = result.central.num_keyframes + result.query.num_keyframes
         fb = rm.chunk_knn_fallbacks
         runs.append({"run": i, "wall_s": wall, "keyframes_per_s": n_kf / wall,
                      "k4_launches": chunk_knn_sqdists.launches,
                      "k4_merge_launches": chunk_knn_sqdists.merges,
                      "k2_launches": k2, "k3_launches": k3,
+                     "k2_global_launches": k2g, "k3_global_launches": k3g,
                      "knn2_launches": knn2_sqdists.launches,
                      "escalated_queries": sum(len(f["escalated"]) for f in fb),
                      "brute_forced_queries": sum(len(f["brute"]) for f in fb),
@@ -1426,6 +1630,7 @@ def phase_default_config(cfg, brute_masks):
         "escalated_queries_per_run": [r["escalated_queries"] for r in timed],
         "brute_forced_queries_per_run": [r["brute_forced_queries"] for r in timed],
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "memory_allocated_after_bytes": torch.cuda.memory_allocated(),
         "sets_equal_brute_force": True,
     }
     log(f"[5] {json.dumps(summary)}")
@@ -1480,14 +1685,15 @@ def phase5_sweeps(rm, full, sweep_calls, brute_masks):
     for route in ("plain", "kernel", "kernel", "plain"):
         reset_stage_times()
         torch.cuda.synchronize()
-        set_sweep_counts((0, 0))
+        set_sweep_counts()
         with pipeline_sweeps(route):
             t0 = time.perf_counter()
             res = rm.run(*full)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        k2, k3 = sweep_counts()
-        if (route == "kernel") != (k2 > 0 and k3 > 0) or (route == "plain" and k2 + k3):
+        k2, k3, k2g, k3g = sweep_counts()
+        if ((route == "kernel") != (k2 > 0 and k3 > 0) or (route == "plain" and k2 + k3)
+                or k2g or k3g):
             raise AssertionError(f"phase 5 {route} turn: K2 {k2}, K3 {k3} launch sets")
         diff = [n for n in MASK_NAMES
                 if not np.array_equal(res.masks[n].cpu().numpy(), brute_masks[n])]
@@ -1499,7 +1705,7 @@ def phase5_sweeps(rm, full, sweep_calls, brute_masks):
                           "removert.strong_weak", "removert.project_static",
                           "removert.high_dynamic")}})
         log(f"[5] sweep turn: {json.dumps(turns[-1])}")
-    set_sweep_counts((0, 0))
+    set_sweep_counts()
     log(f"[5] {len(per_call)} sweep calls of the warm-up run bit-equal to plain")
     return {"calls": len(per_call), "per_call": per_call, "largest": timed, "turns": turns}
 
@@ -1801,7 +2007,9 @@ def phase_slam_full_width():
     import torch
 
     from ltm_torch.core.config import LTSlamConfig
+    from ltm_torch.graph import solver
     from ltm_torch.io.synthetic import make_two_sessions
+    from ltm_torch.kernels.scatter import fixed_order_sum
 
     os.environ["LTM_SYNC_STAGES"] = "1"
     t0 = time.perf_counter()
@@ -1810,15 +2018,22 @@ def phase_slam_full_width():
     log(f"[8] workload made in {time.perf_counter() - t0:.1f} s")
 
     runs = []
-    for i in range(2):                          # run 0 warms up
+    scatter_calls = {}
+    for i in range(2):                          # run 0 warms up, recording the scatter-sums
         if i == 1:
             torch.cuda.reset_peak_memory_stats()
+        fixed_order_sum.launches = 0
         hot = HotLoops()
+        solver.fixed_order_sum = scatter_recorder(scatter_calls) if i == 0 else fixed_order_sum
         try:
             slam, res, st = slam_run(LTSlamConfig(), bundle, hot)
         finally:
             hot.restore()
+            solver.fixed_order_sum = fixed_order_sum
         st["run"] = i
+        st["scatter_launches"] = fixed_order_sum.launches
+        if fixed_order_sum.launches <= 0:
+            raise AssertionError("LT-SLAM launched no fixed-order scatter-sum")
         runs.append(st)
         log(f"[8] {json.dumps(st)}")
         if st["ate_rmse_m"] > ATE_BOUND:
@@ -1855,8 +2070,15 @@ def phase_slam_full_width():
     if noisy["ate_rmse_m"] > ATE_NOISY_BOUND:
         raise AssertionError(f"noisy run: ATE {noisy['ate_rmse_m']} m > {ATE_NOISY_BOUND} m")
 
+    scatter = [compare_scatter(f"phase8_{name}", src_t, plan, timed=True)
+               for name, (src_t, plan) in sorted(scatter_calls.items())]
+    for st in scatter:
+        log(f"[8] fixed_order_sum, largest call: {json.dumps(st)}")
+
     timed = runs[1:]
     summary = {
+        "scatter_launches_per_run": [r["scatter_launches"] for r in timed],
+        "scatter_largest_calls": scatter,
         "keyframes": n_kf,
         "median_keyframes_per_s": statistics.median(r["keyframes_per_s"] for r in timed),
         "median_wall_s": statistics.median(r["wall_s"] for r in timed),
@@ -2008,8 +2230,16 @@ def phase_lifelong():
         def run(self, *args, **kwargs):
             calls.clear()                  # the recorded calls are the last round's
             c0 = (chunk_knn_sqdists.launches, chunk_knn_sqdists.merges, knn2_sqdists.launches)
+            torch.cuda.synchronize()
+            before = (torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()   # the round's own peak
             out = super().run(*args, **kwargs)
-            rounds.append({"k4_launches": chunk_knn_sqdists.launches - c0[0],
+            torch.cuda.synchronize()
+            rounds.append({"allocated_before_bytes": before[0],
+                           "peak_before_bytes": before[1],
+                           "peak_bytes": torch.cuda.max_memory_allocated(),
+                           "allocated_after_bytes": torch.cuda.memory_allocated(),
+                           "k4_launches": chunk_knn_sqdists.launches - c0[0],
                            "k4_merge_launches": chunk_knn_sqdists.merges - c0[1],
                            "k1_launches": knn2_sqdists.launches - c0[2],
                            "escalated_queries": sum(len(f["escalated"])
@@ -2048,7 +2278,10 @@ def phase_lifelong():
                            "capacity_estimate_s": walls["lifelong.capacity_estimate"],
                            "last_round_keyframes_per_s": 2 * n_kf / walls[f"lifelong.round_{n_s}"],
                            "live_map_points": int(out.live_map.shape[0]),
-                           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                           "max_memory_allocated_bytes": max(
+                               [torch.cuda.max_memory_allocated()]
+                               + [r[k] for r in rounds for k in ("peak_bytes",
+                                                                  "peak_before_bytes")]),
                            "rounds": per_round})
             log(f"[10] {json.dumps(chains[-1])}")
             if i == 0:
@@ -2097,6 +2330,9 @@ def phase_lifelong():
         "k4_launches_per_round": [r["k4_launches"] for r in timed[-1]["rounds"]],
         "k1_launches_per_round": [r["k1_launches"] for r in timed[-1]["rounds"]],
         "max_memory_allocated_bytes": max(c["max_memory_allocated_bytes"] for c in timed),
+        "round_memory_bytes": [{k: r[k] for k in ("round", "allocated_before_bytes",
+                                                  "peak_bytes", "allocated_after_bytes")}
+                               for r in timed[-1]["rounds"]],
         "k4_vs_plain_last_round": [{k: st[k] for k in ("case", "n_valid", "ulps",
                                                         "overflowed_chunks", "merge_launches")}
                                    for st in checked],
@@ -2629,17 +2865,18 @@ def phase_headline():
 
     dts = []
     for _ in range(3):
-        set_sweep_counts((0, 0))
+        set_sweep_counts()
         t0 = time.perf_counter()
         if run()[0]:
             raise AssertionError("headline sweep: the mask changed between runs")
         dts.append(time.perf_counter() - t0)
-        if sweep_counts()[0] <= 0:
-            raise AssertionError("headline sweep: K2 did not launch in a timed sweep")
+        if sweep_counts()[0] <= 0 or sweep_counts()[2]:
+            raise AssertionError(f"headline sweep: K2 launch sets {sweep_counts()} in a timed "
+                                 "sweep (the cluster variant must launch)")
     turns = []
     for route in ("plain", "kernel", "kernel", "plain"):
         fn = block_sweep_discrepancy_plain if route == "plain" else block_sweep_discrepancy
-        set_sweep_counts((0, 0))
+        set_sweep_counts()
         t0 = time.perf_counter()
         differ, err = run(fn)
         wall = time.perf_counter() - t0
@@ -2650,7 +2887,7 @@ def phase_headline():
             raise AssertionError(f"headline sweep ({route}): {sweep_counts()[0]} K2 launches")
         turns.append({"route": route, "sweep_s": wall, "keyframes_per_s": k_frames / wall,
                       "differ": differ, "max_abs_err": err})
-    set_sweep_counts((0, 0))
+    set_sweep_counts()
     st = {"removert_visibility_keyframes_per_s_5M_map": k_frames / statistics.mean(dts),
           "sweep_s": dts, "flagged": flagged, "k_blocks": k_blocks,
           "n_blocks": bm.num_blocks, "block_build_s": build_s, "turns": turns,
@@ -3079,20 +3316,6 @@ SOLVE_GATE = dict(pose_log=1e-3, cost_rtol=0.05)   # tests/test_dist.py:76-80 (l
 ICP_FITNESS_RTOL = 1e-3                             # tests/test_dist.py:229
 
 
-@contextlib.contextmanager
-def deterministic():
-    """torch's deterministic algorithms: ``index_add_`` on the card then
-    adds in a fixed order instead of by atomics, so a solve repeats bit
-    for bit (ops without such an algorithm only warn)."""
-    import torch
-
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(False)
-
-
 def counted_collectives(fn):
     """(fn's result, {collective: calls}) with the sharded solver's
     ``concat`` and ``reduce_sum`` counted."""
@@ -3138,11 +3361,13 @@ def solve_pair(tag, g, mesh, cfg, one, pose_gate=True):
     ``timed_solve`` of the same graph: both walls, LM steps and CG
     residuals, the largest |se3 log(between)|, held to ``SOLVE_GATE`` (the
     final cost only, with ``pose_gate=False``); the sharded run's
-    collectives."""
+    collectives, and the sharded solve once more against itself (its
+    repeat)."""
     from ltm_torch.dist import solve_sharded
 
     (poses, info, secs), colls = counted_collectives(
         lambda: timed_solve(lambda: solve_sharded(g, mesh, cfg)))
+    again = solve_sharded(g, mesh, cfg)[0]
     one_poses, info_one, one_s = one
     err = pose_log_gap(one_poses, poses)
     cost, cost_one = float(info.cost_final), float(info_one.cost_final)
@@ -3150,7 +3375,7 @@ def solve_pair(tag, g, mesh, cfg, one, pose_gate=True):
           "lm_steps": [info_one.iterations, info.iterations],
           "cg_residual": [float(info_one.cg_residual), float(info.cg_residual)],
           "cost_final": [cost_one, cost], "max_pose_log": err, "pose_gated": pose_gate,
-          "collectives": colls}
+          "repeat_max_pose_log": pose_log_gap(poses, again), "collectives": colls}
     log(f"[14a] solve_sharded {tag}: {json.dumps(st)}")
     if not ((err < SOLVE_GATE["pose_log"] or not pose_gate)
             and abs(cost - cost_one) <= SOLVE_GATE["cost_rtol"] * abs(cost_one)):
@@ -3158,23 +3383,27 @@ def solve_pair(tag, g, mesh, cfg, one, pose_gate=True):
     return st
 
 
-def solver_pairs(tag, g, mesh, modes, pose_gate=True):
-    """``solve_pair`` in each mode ({mode: SolverConfig}) against one
-    one-device solve, with deterministic algorithms; and the one-device
-    solve once more without them, against that solve (its own spread on
-    the card: atomic adds in a varying order)."""
+def solver_pairs(tag, g, mesh, modes, pose_gate=("schur", "allreduce")):
+    """The one-device solve run twice, which must give the same bits (its
+    scatter-sums take a fixed order), then ``solve_pair`` in each mode
+    ({mode: SolverConfig}) against it, the poses gated in the modes
+    ``pose_gate`` names."""
+    import torch
+
     from ltm_torch.graph import solve
 
     cfg = next(iter(modes.values()))
-    with deterministic():
-        one = timed_solve(lambda: solve(g, cfg))
-        out = {mode: solve_pair(f"{mode}, {tag}", g, mesh, m, one, pose_gate)
-               for mode, m in modes.items()}
-    again, info, _ = timed_solve(lambda: solve(g, cfg))
-    out["one_device_repeat"] = {"lm_steps": [one[1].iterations, info.iterations],
-                                "max_pose_log": pose_log_gap(one[0], again)}
-    log(f"[14a] one-device solve of {tag} without deterministic algorithms: "
-        f"{json.dumps(out['one_device_repeat'])}")
+    one = timed_solve(lambda: solve(g, cfg))
+    again = timed_solve(lambda: solve(g, cfg))
+    rep = {"lm_steps": [one[1].iterations, again[1].iterations],
+           "max_pose_log": pose_log_gap(one[0], again[0]),
+           "bit_equal": torch.equal(one[0], again[0]), "walls_s": [one[2], again[2]]}
+    log(f"[14a] one-device solve of {tag}, twice: {json.dumps(rep)}")
+    if not rep["bit_equal"] or rep["lm_steps"][0] != rep["lm_steps"][1]:
+        raise AssertionError(f"the one-device solve of {tag} does not repeat: {json.dumps(rep)}")
+    out = {mode: solve_pair(f"{mode}, {tag}", g, mesh, m, one, mode in pose_gate)
+           for mode, m in modes.items()}
+    out["one_device_repeat"] = rep
     return out
 
 
@@ -3205,14 +3434,111 @@ def collectives_per_step(g, mesh, cfg, iterations=(5, 20)):
     return out
 
 
+def record_icp_chunk(bundle, mesh):
+    """(slam, result, run stats, (args, kwargs) of the first ICP chunk)
+    of ``LTSlam.run`` on ``mesh``: the chunk is the first call of the
+    pipeline's ``icp_batch_sharded``."""
+    import ltm_torch.slam.pipeline as pipe
+    from ltm_torch.core.config import LTSlamConfig
+    from ltm_torch.dist.sharding import icp_batch_sharded
+
+    chunk = []
+
+    def recording(m, *args, **kwargs):
+        if not chunk:
+            chunk.append((args, kwargs))
+        return icp_batch_sharded(m, *args, **kwargs)
+
+    pipe.icp_batch_sharded = recording
+    try:
+        slam, res, run = slam_run(LTSlamConfig(), bundle, mesh=mesh)
+    finally:
+        pipe.icp_batch_sharded = icp_batch_sharded
+    return slam, res, run, chunk[0]
+
+
+def icp_lane_ops(args, kwargs):
+    """Which op of one ICP iteration gives lane 0 other bits inside its
+    batch than alone: each op of ``register.icp._iterate`` (the pose
+    transform, the 1-NN and its tile GEMM, the Umeyama sums and
+    cross-covariance, the rotation, the MSE sums) and the fitness, fed the
+    whole chunk's inputs at the first iteration, then the same inputs cut
+    to lane 0 and to lanes 0-1 (a shard's batch).  {op: {"alone": entries
+    of lane 0 that differ, "pair": ...}}."""
+    import torch
+
+    from ltm_torch.core import se3
+    from ltm_torch.kernels.knn import _bbox_mid, nn_sqdist_argmin
+    from ltm_torch.register import icp as I
+
+    src, sm, tgt, tm, init = args[:5]
+    tile = kwargs.get("tile", 4096)
+    max_d2 = I._max_d2(kwargs["max_correspondence_distance"], kwargs.get("update_trim_distance"))
+    moved = se3.transform_points(init, src)
+    d2, idx = nn_sqdist_argmin(moved, sm, tgt, tm, tile=tile)
+    w = (sm & (d2 <= max_d2)).to(src.dtype)
+    dst = torch.gather(tgt, -2, idx[..., None].expand(idx.shape + (3,)))
+    ws = w[..., None]
+    wsum = torch.clamp(torch.sum(w, -1), min=1e-12)[..., None]
+    cs = torch.sum(moved * ws, -2) / wsum
+    cd = torch.sum(dst * ws, -2) / wsum
+    a_c = (moved - cs[..., None, :]) * ws
+    d_c = dst - cd[..., None, :]
+    H = torch.matmul(a_c.transpose(-1, -2), d_c)
+
+    def tile_gemm(q, t):
+        mid = _bbox_mid(t, torch.ones_like(t[..., 0], dtype=torch.bool))[..., None, :]
+        qc, tc = q - mid, t[..., :tile, :] - mid
+        s2 = torch.sum(qc * qc, -1)[..., None] + torch.sum(tc * tc, -1)[..., None, :]
+        return torch.baddbmm(s2, qc, tc.transpose(-1, -2), alpha=-2.0)
+
+    ops = {
+        "transform_points": (lambda T, p: se3.transform_points(T, p), (init, src)),
+        "tile_gemm (baddbmm)": (tile_gemm, (moved, tgt)),
+        "nn_sqdist_argmin": (lambda *a: torch.cat([x.float()[..., None] for x in
+                                                    nn_sqdist_argmin(*a, tile=tile)], -1),
+                             (moved, sm, tgt, tm)),
+        "sum_w": (lambda x: torch.sum(x, -1), (w,)),
+        "sum_src_w": (lambda x, y: torch.sum(x * y, -2), (moved, ws)),
+        "sum_dst_w": (lambda x, y: torch.sum(x * y, -2), (dst, ws)),
+        "cross_cov, one batched matmul": (lambda x, y: torch.matmul(x.transpose(-1, -2), y),
+                                          (a_c, d_c)),
+        "cross_cov (icp._cross_covariance)": (I._cross_covariance, (a_c, d_c)),
+        "opt_rotation": (I._opt_rotation, (H,)),
+        "umeyama": (I._umeyama_rigid, (moved, dst, w)),
+        "pose update, one batched matmul": (torch.matmul, (init, init)),
+        "pose update (icp._lane_matmul)": (I._lane_matmul, (init, init)),
+        "mse_sums": (lambda x, y: torch.sum(x * y, -1), (w, d2)),
+        "mse_sums (icp._lane_sum)": (lambda x, y: I._lane_sum(x * y, -1), (w, d2)),
+        "fitness_score": (lambda *a: I.fitness_score(*a, tile=tile), (src, sm, tgt, tm, init)),
+    }
+    out = {}
+    for name, (fn, xs) in ops.items():
+        whole = fn(*xs)[0]
+        row = {}
+        for tag, n in (("alone", 1), ("pair", 2)):
+            part = fn(*(x[:n] for x in xs))[0]
+            ne = whole != part
+            row[tag] = int(ne.sum())
+            if row[tag]:
+                row[tag + "_max_abs"] = float((whole.double() - part.double()).abs().max())
+        out[name] = row
+    torch.cuda.synchronize()
+    return out
+
+
+ICP_BATCH_GATE = 1e-4     # transform entries, one ICP lane in batches of other shapes
+
+
 def icp_pair(mesh, args, kwargs):
     """``icp_batch_sharded`` on a chunk of ICP lanes against the one-device
     ``icp_batch``: on each shard's lanes bit for bit (what the sharding
     itself may change), and on the whole chunk with the fitness within
-    ``ICP_FITNESS_RTOL``.  The card's sums group by the batch's shape, so
-    the one-device function's transforms move between batchings of the
-    same lanes: the transform gap to the whole chunk is reported beside
-    that of one lane a call (not gated, see PERF.md); both walls."""
+    ``ICP_FITNESS_RTOL``; a lane's result must not depend on its batch:
+    the whole chunk, one lane a call and the shards give transforms within
+    ``ICP_BATCH_GATE`` and the same iteration counts (bit-equal
+    transforms are reported); both walls, and which op of an iteration
+    gives a lane other bits alone than in the chunk (``icp_lane_ops``)."""
     import torch
 
     from ltm_torch.dist.mesh import local_shards
@@ -3240,8 +3566,16 @@ def icp_pair(mesh, args, kwargs):
               float((one.transform - singles.transform).abs().max()),
           "iterations": {"whole_chunk": one.iterations.tolist(), "sharded": got.iterations.tolist(),
                          "lane_a_call": singles.iterations.tolist()}}
+    st["bit_equal"] = {"whole_chunk_vs_sharded": torch.equal(one.transform, got.transform),
+                       "whole_chunk_vs_lane_a_call": torch.equal(one.transform,
+                                                                 singles.transform)}
+    st["lane_ops_alone_vs_chunk"] = icp_lane_ops(args, kwargs)
     log(f"[14a] icp_batch_sharded: {json.dumps(st)}")
-    if not st["per_shard_bit_equal"] or st["max_fitness_rel_err"] > ICP_FITNESS_RTOL:
+    its = st["iterations"]
+    if (not st["per_shard_bit_equal"] or st["max_fitness_rel_err"] > ICP_FITNESS_RTOL
+            or st["max_transform_gap_whole_chunk"] > ICP_BATCH_GATE
+            or st["one_device_lane_a_call_transform_gap"] > ICP_BATCH_GATE
+            or its["whole_chunk"] != its["sharded"] or its["whole_chunk"] != its["lane_a_call"]):
         raise AssertionError(f"icp_batch_sharded: {json.dumps(st)}")
     return st
 
@@ -3256,16 +3590,16 @@ def phase_slam_mesh(full=None):
     sharded function at those shapes against its one-device function:
     ``sc_distance_sharded`` on the 500 × 500 descriptors (distance within
     1e-5, shifts equal), ``icp_batch_sharded`` on the recorded chunk
-    (``icp_pair``), ``solve_sharded`` in both modes on phase 8's final
-    graph and on phase 7's ((c)'s card run), each against the one-device
-    solve (``solver_pairs``: the final cost on both graphs, the poses on
-    phase 7's; phase 8's graph pins its poses only to ~1e-3, as the
-    one-device solve repeated shows), and the collectives an LM step at
-    two ``cg_iterations``.  (c) phase 7's cut workload on 4 slots, card
+    (``icp_pair``: a lane's result independent of its batch),
+    ``solve_sharded`` in both modes on phase 8's final graph and on phase
+    7's ((c)'s card run), each against the one-device solve, which must
+    repeat bit for bit (``solver_pairs``: the final cost on both graphs,
+    the poses on both in schur mode and on phase 7's in all-reduce mode,
+    whose reduced sums move phase 8's poses past the gate), and the
+    collectives an LM step at two ``cg_iterations``.  (c) phase 7's cut workload on 4 slots, card
     against CPU under phase 7's rule.  (d) a one-process NCCL group:
     ``solve_sharded`` on 2 slots through it equals the same call without a
-    group bit for bit on phase 7's graph (deterministic algorithms in
-    both).  ``full`` is
+    group bit for bit on phase 7's graph.  ``full`` is
     phase 8's reference run; without it (a call of this phase alone) one
     one-device run gives it."""
     import socket
@@ -3273,10 +3607,9 @@ def phase_slam_mesh(full=None):
     import torch
     import torch.distributed as dist
 
-    import ltm_torch.slam.pipeline as pipe
     from ltm_torch.core.config import LTSlamConfig
     from ltm_torch.dist import Mesh, initialize_multihost, make_mesh, solve_sharded
-    from ltm_torch.dist.sharding import icp_batch_sharded, sc_distance_sharded
+    from ltm_torch.dist.sharding import sc_distance_sharded
     from ltm_torch.io.synthetic import make_two_sessions
     from ltm_torch.retrieval.scancontext import sc_distance_matrix
     from ltm_torch.slam import LTSlam
@@ -3292,18 +3625,7 @@ def phase_slam_mesh(full=None):
     mesh = make_mesh([dev] * MESH_SLOTS)
 
     # (b) LTSlam.run on the mesh, recording its first ICP chunk
-    chunk = []
-
-    def recording(m, *args, **kwargs):
-        if not chunk:
-            chunk.append((args, kwargs))
-        return icp_batch_sharded(m, *args, **kwargs)
-
-    pipe.icp_batch_sharded = recording
-    try:
-        slam, res, run_b = slam_run(LTSlamConfig(), bundle, mesh=mesh)
-    finally:
-        pipe.icp_batch_sharded = icp_batch_sharded
+    slam, res, run_b, chunk = record_icp_chunk(bundle, mesh)
     one_slam, one_res = full["slam"], full["res"]
     dmax = max(float(np.abs(res.central_poses[n][:, :3, 3]
                             - one_res.central_poses[n][:, :3, 3]).max()) for n in res.central_poses)
@@ -3328,14 +3650,20 @@ def phase_slam_mesh(full=None):
     log(f"[14a] sc_distance_sharded: {json.dumps(sc)}")
     if sc["max_abs_err"] > 1e-5 or sc["shifts_differ"]:
         raise AssertionError(f"sc_distance_sharded: {json.dumps(sc)}")
-    icp = icp_pair(mesh, *chunk[0])
-    # the solver at full width: both modes against the one-device solve with
-    # deterministic algorithms, beside that solve repeated without them
+    icp = icp_pair(mesh, *chunk)
+    # the solver at full width: the one-device solve twice, then both modes
+    # against it
     g = one_slam._last_graph
     solver_cfg = LTSlamConfig().solver
     modes = {mode: dataclasses.replace(solver_cfg, dist_mode=mode)
              for mode in ("schur", "allreduce")}
-    solves = {"phase8_graph": solver_pairs("phase 8's graph", g, mesh, modes, pose_gate=False)}
+    # the all-reduce mode's sums (gradient, preconditioner, every CG
+    # product) reduce over the slots in another order than one device's:
+    # on phase 8's graph its poses land ~3e-3 from the one-device solve's
+    # (an LM step more), so there its cost is gated, and its poses on phase
+    # 7's graph
+    solves = {"phase8_graph": solver_pairs("phase 8's graph", g, mesh, modes,
+                                           pose_gate=("schur",))}
     for mode, cfg in modes.items():
         solves[mode + "_collectives_per_step"] = collectives_per_step(g, mesh, cfg)
 
@@ -3366,20 +3694,19 @@ def phase_slam_mesh(full=None):
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
-    with deterministic():
-        want, _ = solve_sharded(g, Mesh((dev, dev)), solver_cfg)
-        if not initialize_multihost(coordinator_address=f"127.0.0.1:{port}", num_processes=1,
-                                    process_id=0, device=dev):
-            raise AssertionError("initialize_multihost started no group")
-        try:
-            if dist.get_backend() != "nccl":
-                raise AssertionError(f"the CUDA group runs {dist.get_backend()}, not nccl")
-            grouped = make_mesh([dev] * 2)
-            if grouped.group is None:
-                raise AssertionError("a mesh built after initialize_multihost has no group")
-            got, info, nccl_s = timed_solve(lambda: solve_sharded(g, grouped, solver_cfg))
-        finally:
-            dist.destroy_process_group()
+    want, _ = solve_sharded(g, Mesh((dev, dev)), solver_cfg)
+    if not initialize_multihost(coordinator_address=f"127.0.0.1:{port}", num_processes=1,
+                                process_id=0, device=dev):
+        raise AssertionError("initialize_multihost started no group")
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"the CUDA group runs {dist.get_backend()}, not nccl")
+        grouped = make_mesh([dev] * 2)
+        if grouped.group is None:
+            raise AssertionError("a mesh built after initialize_multihost has no group")
+        got, info, nccl_s = timed_solve(lambda: solve_sharded(g, grouped, solver_cfg))
+    finally:
+        dist.destroy_process_group()
     if not torch.equal(got, want):
         raise AssertionError(f"solve_sharded through NCCL differs from the same call without a "
                              f"group by {float((got - want).abs().max())}")
@@ -3506,6 +3833,8 @@ def main() -> int:
         "km_offset_bound_ms": km4["bound_ms"],
         "km_offset_k1_yardstick_ms": km4["k1_yardstick_ms"],
     }]
+    from ltm_torch.kernels import sweep
+
     fwd5 = sweeps5["largest"]["block_sweep_discrepancy"]
     vsi5 = sweeps5["largest"]["block_sweep_discrepancy_vs_images"]
     fus5 = sweeps5["largest"]["block_fused_visibility_images"]
@@ -3522,38 +3851,83 @@ def main() -> int:
     errs[SWEEP_FUNCS[0]] += [t["max_abs_err"] for t in headline["turns"]] + [head["max_abs_err"]]
     k2_err = max(max(errs[fn]) for fn in SWEEP_FUNCS[:3])
     k3_err = max(errs[SWEEP_FUNCS[3]])
+    variant_cases = {st["case"]: st for st in sweep_cases["per_case"]}
+
+    def variants(fn, timed, cluster_key, global_key, global_case):
+        plan, kernel = timed["cluster_plan"], "k3" if fn == SWEEP_FUNCS[3] else "k2"
+        return {"cluster": dict(plan, launches=k4_run[cluster_key], kernel=kernel + "_cluster",
+                                clusters_resident=sweep.cluster_occupancy(
+                                    kernel, plan["cluster"], plan["shared_bytes_a_cta"])),
+                "global": {"launches": k4_run[global_key], "ms": timed["global_ms"],
+                           "phase2_case": global_case,
+                           "phase2_max_abs_err": variant_cases[global_case]["max_abs_err"],
+                           "taken_when": "no cluster of 8 CTAs holds the images"}}
+
     common = {"route": "cuda", "source": "ltm_torch/csrc/sweep.cu",
               "launches_path": "phase 5 (RemovertConfig() defaults): launch sets, one a chunk "
                                "of up to 64 keyframes",
               "library_ms": None}
     kernels += [dict(common, **{
         "name": "block_sweep_discrepancy (K2)",
-        "route_kernels": ["k2_scan_min (scan ranges into each keyframe's image; forward sweeps)",
-                          "k2_map_min (selected blocks' slots into each keyframe's map image)",
-                          "k2_flag (winner and diff test, OR into the block layout)"],
+        "route_kernels": ["k2_cluster (cluster variant, the default: a cluster a keyframe, "
+                          "its images in the cluster's shared memory; scan min, map min, "
+                          "flag in one launch)",
+                          "global variant: k2_scan_min, k2_map_min, k2_flag (images in "
+                          "device memory, global atomics)"],
         "replaces": "ltm/kernels/blocks.py:222",
         "also_replaces": ["ltm/kernels/blocks.py:330", "ltm/kernels/blocks.py:375"],
         "launches": k4_run["k2_launches"],
+        "variants": variants(SWEEP_FUNCS[0], fwd5, "k2_launches", "k2_global_launches",
+                             "forward_global"),
+        "vs_images_cluster": vsi5["cluster_plan"],
         "max_abs_err": k2_err,
         "presel_calls_compared": optin["a_occlusion"]["presel_vs_plain"]["calls"],
         "ms": fwd5["ms"], "plain_ms": fwd5["plain_ms"], "bound_ms": fwd5["bound_ms"],
-        "bound_by": fwd5["bound_by"],
-        "vs_images_ms": vsi5["ms"], "vs_images_plain_ms": vsi5["plain_ms"],
+        "bound_by": fwd5["bound_by"], "global_ms": fwd5["global_ms"],
+        "vs_images_ms": vsi5["ms"], "vs_images_global_ms": vsi5["global_ms"],
+        "vs_images_plain_ms": vsi5["plain_ms"],
         "vs_images_bound_ms": vsi5["bound_ms"], "vs_images_bound_by": vsi5["bound_by"],
-        "headline_ms": head["ms"], "headline_plain_ms": head["plain_ms"],
+        "headline_ms": head["ms"], "headline_global_ms": head["global_ms"],
+        "headline_plain_ms": head["plain_ms"],
         "headline_bound_ms": head["bound_ms"], "headline_bound_by": head["bound_by"],
         "phase5_calls": sweeps5["calls"], "cases": sweep_cases["cases"],
     }), dict(common, **{
         "name": "block_fused_visibility_images (K3)",
-        "route_kernels": ["k3_packed<false> (packed int32 scatter-min at the proj resolution)",
-                          "k3_packed<true> (winner test, OR into the block layout)",
-                          "k3_decode (each pixel's winner into the filter-resolution image)"],
+        "route_kernels": ["k3_cluster (cluster variant, the default: the packed image in "
+                          "the cluster's shared memory; packed min, winners, decode into the "
+                          "output image, one launch)",
+                          "global variant: k3_packed<false>, k3_packed<true>, k3_decode"],
         "replaces": "ltm/kernels/blocks.py:537",
         "launches": k4_run["k3_launches"],
+        "variants": variants(SWEEP_FUNCS[3], fus5, "k3_launches", "k3_global_launches",
+                             "fused_global"),
         "max_abs_err": k3_err,
         "ms": fus5["ms"], "plain_ms": fus5["plain_ms"], "bound_ms": fus5["bound_ms"],
-        "bound_by": fus5["bound_by"],
+        "bound_by": fus5["bound_by"], "global_ms": fus5["global_ms"],
     })]
+    sc8 = {st["case"]: st for st in slam["full_width"]["scatter_largest_calls"]}
+    main8 = sc8.get("phase8_width_6", next(iter(sc8.values())))
+    kernels.append({
+        "name": "fixed_order_sum (the solver's scatter-sums)",
+        "route": "cuda",
+        "route_kernels": ["fixed_order_sum<float|double> (a thread an output element, its "
+                          "row's contributions summed in list order)"],
+        "source": "ltm_torch/csrc/scatter.cu",
+        "replaces": "ltm/graph/solver.py:157",
+        "also_replaces": ["ltm/graph/solver.py:255"],
+        "launches": slam["full_width"]["scatter_launches_per_run"][-1],
+        "launches_path": "phase 8 (LTSlam.run, LTSlamConfig()): eager launches; the PCG's "
+                         "CUDA-graph replays launch it without a count",
+        "max_abs_err": max(st["max_abs_err"] for st in sweep_cases["scatter"]
+                           + slam["full_width"]["scatter_largest_calls"]),
+        "ms": main8["ms"], "plain_ms": main8["plain_ms"], "bound_ms": main8["bound_ms"],
+        "bound_by": main8["bound_by"], "library_ms": main8["library_ms"],
+        "library": "index_add_ (atomic: not a fixed order)",
+        "per_call": [{k: st[k] for k in ("case", "src", "max_degree", "ms", "plain_ms",
+                                         "bound_ms", "bound_by", "library_ms")}
+                     for st in slam["full_width"]["scatter_largest_calls"]],
+        "cases": len(sweep_cases["scatter"]),
+    })
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"slam": slam}))

@@ -104,15 +104,14 @@ def pad_graph_for_mesh(g: GraphData, n_devices: int) -> GraphData:
 
 def _on(g: GraphData, device, rows: Optional[Dict[str, Tuple[int, int]]] = None) -> GraphData:
     """``g`` on ``device``; with ``rows`` ({family: (start, stop)}) only
-    those rows of each factor batch (a slot's shard, without host copies)."""
-    kw = {}
-    for name in _tensor_fields():
-        t = getattr(g, name)
+    those rows of each factor batch and of their host copies (a slot's
+    shard)."""
+    def cut(name, t):
         fam = _family(name)
-        if rows is not None and fam is not None:
-            t = t[rows[fam][0]:rows[fam][1]]
-        kw[name] = t.to(device)
-    return GraphData(**kw, host=g.host if rows is None else {})
+        return t if rows is None or fam is None else t[rows[fam][0]:rows[fam][1]]
+
+    kw = {name: cut(name, getattr(g, name)).to(device) for name in _tensor_fields()}
+    return GraphData(**kw, host={k: cut(k, v) for k, v in g.host.items()})
 
 
 def _slot_graphs(gp: GraphData, mesh: Mesh):

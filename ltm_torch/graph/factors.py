@@ -13,7 +13,8 @@ Residuals are whitened by per-factor ``inv_sigma`` 6-vectors (tangent order
 variables (``fixed``); robust (Cauchy k=1) factors get IRLS weights.  Each
 batch is padded to a capacity with a validity mask.  ``GraphData.host``
 keeps NumPy copies of the index arrays, so the solver can lay out the
-odometry chains without reading the device.
+odometry chains and its fixed-order scatter-sums without reading the
+device.
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ __all__ = ["GraphData", "build_graph_data", "graph_from_arrays", "whitened_resid
 GRAPH_FIELDS = ("poses0", "fixed", "prior_idx", "prior_meas", "prior_inv_sigma", "prior_valid",
                 "bet_i", "bet_j", "bet_meas", "bet_inv_sigma", "bet_robust", "bet_valid",
                 "anc_i", "anc_j", "anc_ai", "anc_aj", "anc_meas", "anc_inv_sigma", "anc_valid")
-_HOST_FIELDS = ("fixed", "bet_i", "bet_j", "bet_valid")
+_HOST_FIELDS = ("fixed", "prior_idx", "prior_valid", "bet_i", "bet_j", "bet_valid", "anc_i",
+                "anc_j", "anc_ai", "anc_aj", "anc_valid")
 
 
 @dataclass(frozen=True)

@@ -17,6 +17,14 @@ Replaces the reference's GTSAM iSAM2 (``ltslam/src/LTslam.cpp:136-142``,
 The outer loop runs on the host, as in ``ltm``: one accept test (``done``)
 and one cost read a step.
 
+Every sum of factor contributions into variables (the gradient, the
+preconditioner's blocks, the Gauss-Newton product) is one fixed-order
+scatter-sum (``kernels.scatter``) over a plan built once a graph on the
+host: priors, then the between factors' ``i`` and ``j`` ends, then the
+anchored factors' four ends, each in factor order — ``index_add_``'s order
+on the CPU, whose bits it keeps, and on the card a sum that repeats bit for
+bit, where ``index_add_``'s atomics did not.
+
 The block-Thomas sweeps keep ``ltm``'s op sequence per variable.  They
 run over the independent chains of the graph side by side: a variable
 whose subdiagonal block is zero by structure (a fixed variable, the one
@@ -38,6 +46,7 @@ from torch.func import jacfwd, vmap
 from ltm_torch.core import se3
 from ltm_torch.core.config import SolverConfig
 from ltm_torch.graph.factors import GraphData, robust_weights, total_cost, whitened_residuals
+from ltm_torch.kernels.scatter import ScatterPlan, fixed_order_sum, plan_scatter
 from ltm_torch.utils import count_host_read
 
 __all__ = ["solve", "marginal_covariance", "SolveInfo"]
@@ -122,6 +131,46 @@ def _anc_pairs(jac: FactorJacobians, g: GraphData):
     return ((jac.Jai, g.anc_i), (jac.Jaj, g.anc_j), (jac.Jaai, g.anc_ai), (jac.Jaaj, g.anc_aj))
 
 
+_FACTOR_ENDS = ("prior_idx", "bet_i", "bet_j", "anc_i", "anc_j", "anc_ai", "anc_aj")
+
+
+class _Scatters(NamedTuple):
+    """A graph's scatter plans: ``ends``, the contributions of every
+    factor end in ``_FACTOR_ENDS`` order; ``chain``, the subdiagonal's
+    (the between factors' ``j`` ends, then their ``i`` ends).  Invalid
+    factors (zero Jacobian blocks, so zero contributions) and, in
+    ``chain``, the between factors that join no adjacent pair (masked to
+    zero) are left out."""
+
+    ends: ScatterPlan
+    chain: ScatterPlan
+
+
+def _scatters(g: GraphData) -> _Scatters:
+    """The plans of ``g``, from its host index copies, built on first use
+    and kept on the graph."""
+    plans = g.__dict__.get("_scatters")
+    if plans is None:
+        h, V, dev = g.host, g.num_vars, g.poses0.device
+        valid = {"prior": h["prior_valid"], "bet": h["bet_valid"], "anc": h["anc_valid"]}
+        keep = np.concatenate([valid[k.split("_")[0]] for k in _FACTOR_ENDS])
+        bi, bj = h["bet_i"].astype(np.int64), h["bet_j"].astype(np.int64)
+        chain_keep = np.concatenate([h["bet_valid"] & (bj == bi + 1),
+                                     h["bet_valid"] & (bi == bj + 1)])
+        plans = _Scatters(
+            plan_scatter(np.concatenate([h[k] for k in _FACTOR_ENDS]), V, dev, keep),
+            plan_scatter(np.concatenate([h["bet_j"], h["bet_i"]]), V, dev, chain_keep))
+        object.__setattr__(g, "_scatters", plans)
+    return plans
+
+
+def _ends(per_factor, jac: FactorJacobians):
+    """``per_factor(J, k)`` of every factor end k, in ``_FACTOR_ENDS``
+    order, concatenated along the factor axis (-2)."""
+    js = (jac.Jp, jac.Jbi, jac.Jbj, jac.Jai, jac.Jaj, jac.Jaai, jac.Jaaj)
+    return torch.cat([per_factor(J, k) for k, J in enumerate(js)], -2)
+
+
 def _gram(J: torch.Tensor) -> torch.Tensor:
     """Σ_i J[f,i,j] J[f,i,k] -> (F, 6, 6) (``einsum("fij,fik->fjk")``)."""
     return torch.matmul(J.transpose(-1, -2), J)
@@ -145,22 +194,18 @@ def _precond_sums(poses, g: GraphData, jac: FactorJacobians, tridiag: bool = Fal
     a sharded solve sums across the mesh before :func:`_precond_finish`
     (``ltm``'s ``psum`` in ``_precond_blocks``)."""
     V = g.num_vars
-    blocks = torch.zeros((V, 6, 6), dtype=poses.dtype, device=poses.device)
-    blocks.index_add_(0, g.prior_idx, _gram(jac.Jp))
-    blocks.index_add_(0, g.bet_i, _gram(jac.Jbi))
-    blocks.index_add_(0, g.bet_j, _gram(jac.Jbj))
-    for J, idx in _anc_pairs(jac, g):
-        blocks.index_add_(0, idx, _gram(J))
+    plans = _scatters(g)
+    grams = _ends(lambda J, _: _gram(J).reshape(-1, 36), jac)
+    blocks = fixed_order_sum(grams, plans.ends).reshape(V, 6, 6)
 
     L = None
     if tridiag:
-        L = torch.zeros((V, 6, 6), dtype=poses.dtype, device=poses.device)
         fwd = (g.bet_j == g.bet_i + 1)[:, None, None]
         off_ji = torch.matmul(jac.Jbj.transpose(-1, -2), jac.Jbi)      # "frj,fri->fji"
-        L.index_add_(0, g.bet_j, torch.where(fwd, off_ji, 0.0))
         rev = (g.bet_i == g.bet_j + 1)[:, None, None]
         off_ij = torch.matmul(jac.Jbi.transpose(-1, -2), jac.Jbj)
-        L.index_add_(0, g.bet_i, torch.where(rev, off_ij, 0.0))
+        offs = torch.cat([torch.where(fwd, off_ji, 0.0), torch.where(rev, off_ij, 0.0)])
+        L = fixed_order_sum(offs.reshape(-1, 36), plans.chain).reshape(V, 6, 6)
     return blocks, L
 
 
@@ -261,33 +306,25 @@ def _ftj(J: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 def _grad_from_jacobians(jac: FactorJacobians, rp, rbw, raw, g: GraphData) -> torch.Tensor:
     """Jᵀ r from the factor Jacobians (weights already folded into both)."""
-    grad = torch.zeros((g.num_vars, 6), dtype=rp.dtype, device=rp.device)
-    grad.index_add_(0, g.prior_idx, _ftj(jac.Jp, rp))
-    grad.index_add_(0, g.bet_i, _ftj(jac.Jbi, rbw))
-    grad.index_add_(0, g.bet_j, _ftj(jac.Jbj, rbw))
-    for J, idx in _anc_pairs(jac, g):
-        grad.index_add_(0, idx, _ftj(J, raw))
-    return grad
+    res = (rp, rbw, rbw, raw, raw, raw, raw)
+    return fixed_order_sum(_ends(lambda J, k: _ftj(J, res[k]), jac), _scatters(g).ends)
 
 
 def _hvp_from_jacobians(jac: FactorJacobians, g: GraphData, lam):
     """v ↦ (JᵀWJ + λI) v per factor: y_f = J_f v_{vars(f)}, then the
     scatter-add of J_fᵀ y_f (v: (..., V, 6))."""
 
+    plan = _scatters(g).ends
+
     def hvp(v):
         vf = _free(v, g)
-        out = torch.zeros_like(v)
         yp = _fj(jac.Jp, vf[..., g.prior_idx, :])
-        out.index_add_(-2, g.prior_idx, _ftj(jac.Jp, yp))
         yb = _fj(jac.Jbi, vf[..., g.bet_i, :]) + _fj(jac.Jbj, vf[..., g.bet_j, :])
-        out.index_add_(-2, g.bet_i, _ftj(jac.Jbi, yb))
-        out.index_add_(-2, g.bet_j, _ftj(jac.Jbj, yb))
         ya = torch.zeros(v.shape[:-2] + (jac.Jai.shape[0], 6), dtype=v.dtype, device=v.device)
         for J, idx in _anc_pairs(jac, g):
             ya = ya + _fj(J, vf[..., idx, :])
-        for J, idx in _anc_pairs(jac, g):
-            out.index_add_(-2, idx, _ftj(J, ya))
-        return out + lam * v
+        ys = (yp, yb, yb, ya, ya, ya, ya)
+        return fixed_order_sum(_ends(lambda J, k: _ftj(J, ys[k]), jac), plan) + lam * v
 
     return hvp
 

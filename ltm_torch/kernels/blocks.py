@@ -12,9 +12,11 @@ ever truncated.
 
 The four sweeps of the default path (``block_sweep_discrepancy``,
 ``block_sweep_discrepancy_vs_images``, ``..._presel`` and
-``block_fused_visibility_images``) launch the hand-written kernels K2 and
-K3 (``ltm_torch.kernels.sweep``) on CUDA tensors, and run their plain
-versions, one loop iteration a keyframe (``*_plain``), on CPU tensors.
+``block_fused_visibility_images``) choose their route here, once: on CUDA
+tensors the hand-written kernels K2 and K3 (``ltm_torch.kernels.sweep``,
+every keyframe's blocks chosen at once by ``sweep.select_blocks``), on CPU
+tensors their plain versions, one loop iteration a keyframe
+(``*_plain``), which are also the card's reference.
 """
 
 from __future__ import annotations
@@ -191,8 +193,9 @@ def _select_blocks(bm: BlockMap, origin: torch.Tensor, max_range: float, k_block
 
 
 def _plain(bm: BlockMap) -> bool:
-    """CPU tensors take a sweep's plain version; CUDA tensors its kernel
-    (``sweep`` raises on any other device)."""
+    """The one choice of a sweep's route: CPU tensors take its plain
+    version, any other its kernel (``sweep`` raises on a device other than
+    CUDA)."""
     return bm.xyz.device.type == "cpu"
 
 
@@ -202,9 +205,12 @@ def block_sweep_discrepancy(bm: BlockMap, scans_xyz, scans_mask, pose_inv, poses
     """Block-local ``sweep_discrepancy``; returns the flat
     (n_blocks*block_capacity,) dynamic mask over the blocked layout.  K2 on
     CUDA tensors, :func:`block_sweep_discrepancy_plain` on CPU tensors."""
-    run = block_sweep_discrepancy_plain if _plain(bm) else sweep.block_sweep_discrepancy
-    return run(bm, scans_xyz, scans_mask, pose_inv, poses, fov, shape, k_blocks,
-               max_range=max_range, diff_threshold=diff_threshold, reverse=reverse)
+    if _plain(bm):
+        return block_sweep_discrepancy_plain(bm, scans_xyz, scans_mask, pose_inv, poses, fov,
+                                             shape, k_blocks, max_range, diff_threshold, reverse)
+    sel, val = sweep.select_blocks(bm, poses[:, :3, 3], max_range, k_blocks)
+    return sweep.discrepancy_sweep(bm, None, sel, val, pose_inv, fov, shape, diff_threshold,
+                                   reverse, scans=(scans_xyz, scans_mask)).reshape(-1)
 
 
 def block_sweep_discrepancy_plain(bm: BlockMap, scans_xyz, scans_mask, pose_inv, poses,
@@ -295,10 +301,16 @@ def block_sweep_discrepancy_vs_images(target_bm: BlockMap, target_extra, scan_im
     images.  Selection restricts to blocks CONTAINING target (delta) points
     — exact, since an empty block contributes nothing.  K2 on CUDA tensors,
     :func:`block_sweep_discrepancy_vs_images_plain` on CPU tensors."""
-    run = (block_sweep_discrepancy_vs_images_plain if _plain(target_bm)
-           else sweep.block_sweep_discrepancy_vs_images)
-    return run(target_bm, target_extra, scan_imgs, pose_inv, poses, fov, shape, k_blocks,
-               max_range=max_range, diff_threshold=diff_threshold, reverse=reverse)
+    if _plain(target_bm):
+        return block_sweep_discrepancy_vs_images_plain(target_bm, target_extra, scan_imgs,
+                                                       pose_inv, poses, fov, shape, k_blocks,
+                                                       max_range, diff_threshold, reverse)
+    occupied = target_bm.block_valid & torch.any(
+        target_bm.mask & target_extra.reshape(target_bm.mask.shape), dim=1)
+    sel, val = sweep.select_blocks(target_bm, poses[:, :3, 3], max_range, k_blocks,
+                                   valid=occupied)
+    return sweep.discrepancy_sweep(target_bm, target_extra, sel, val, pose_inv, fov, shape,
+                                   diff_threshold, reverse, scan_imgs=scan_imgs).reshape(-1)
 
 
 def block_sweep_discrepancy_vs_images_plain(target_bm: BlockMap, target_extra, scan_imgs,
@@ -330,10 +342,13 @@ def block_fused_visibility_images(source_bm: BlockMap, source_extra, pose_inv, p
     winner image.  Returns ``(win_union_flat, (K, nrow*ncol) images)``.
     K3 on CUDA tensors, :func:`block_fused_visibility_images_plain` on CPU
     tensors."""
-    run = (block_fused_visibility_images_plain if _plain(source_bm)
-           else sweep.block_fused_visibility_images)
-    return run(source_bm, source_extra, pose_inv, poses, fov, shape, proj_shape, k_blocks,
-               max_range=max_range, scale=scale)
+    if _plain(source_bm):
+        return block_fused_visibility_images_plain(source_bm, source_extra, pose_inv, poses, fov,
+                                                   shape, proj_shape, k_blocks, max_range, scale)
+    sel, val = sweep.select_blocks(source_bm, poses[:, :3, 3], max_range, k_blocks)
+    win, imgs = sweep.winner_sweep(source_bm, source_extra, sel, val, pose_inv, fov, shape,
+                                   proj_shape, scale)
+    return win.reshape(-1), imgs
 
 
 def block_fused_visibility_images_plain(source_bm: BlockMap, source_extra, pose_inv, poses,
@@ -374,10 +389,13 @@ def block_sweep_discrepancy_vs_images_presel(target_bm: BlockMap, target_extra, 
     actual scans it is also the culled forward (high-dynamic) sweep.  K2 on
     CUDA tensors, :func:`block_sweep_discrepancy_vs_images_presel_plain` on
     CPU tensors."""
-    run = (block_sweep_discrepancy_vs_images_presel_plain if _plain(target_bm)
-           else sweep.block_sweep_discrepancy_vs_images_presel)
-    return run(target_bm, target_extra, scan_imgs, pose_inv, sel_idx, sel_valid, fov, shape,
-               diff_threshold=diff_threshold, reverse=reverse)
+    if _plain(target_bm):
+        return block_sweep_discrepancy_vs_images_presel_plain(
+            target_bm, target_extra, scan_imgs, pose_inv, sel_idx, sel_valid, fov, shape,
+            diff_threshold, reverse)
+    return sweep.discrepancy_sweep(target_bm, target_extra, sel_idx, sel_valid, pose_inv, fov,
+                                   shape, diff_threshold, reverse,
+                                   scan_imgs=scan_imgs).reshape(-1)
 
 
 def block_sweep_discrepancy_vs_images_presel_plain(target_bm: BlockMap, target_extra,

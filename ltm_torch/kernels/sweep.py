@@ -1,6 +1,6 @@
 """LT-removert's block visibility sweeps for all keyframes at once: the
-wrappers of the hand-written CUDA kernels ``ltm_torch/csrc/sweep.cu``,
-their launch counts, and the plain mirror of the kernels' passes.
+wrappers of the hand-written CUDA kernels ``ltm_torch/csrc/sweep.cu`` and
+their launch counts.
 
 * K2, :func:`discrepancy_sweep` (replacing the ``lax.scan`` that XLA
   compiles from ``ltm/kernels/blocks.py:222 block_sweep_discrepancy``,
@@ -14,16 +14,16 @@ their launch counts, and the plain mirror of the kernels' passes.
   projection resolution, the winner test, and the decode of every pixel's
   winner into the filter-resolution image.
 
-The keyframes' images lie side by side, keyframe k's at offset
-``k·n_pix``, so each pass is one launch (one scatter for the mirror) over
-every (keyframe, selected block, slot); keyframes run in chunks of
-:data:`MAX_KEYFRAMES`.  CUDA tensors launch the kernels or raise; CPU
-tensors take the mirror, which the CPU tests hold bit for bit to the
-per-keyframe loops of ``ltm_torch.kernels.blocks`` (the plain versions,
-``*_plain``).  The four ``block_*`` functions here are those of
-``blocks.py`` run through the kernels, with every keyframe's blocks chosen
-at once (:func:`select_blocks`).  The module builds and imports nothing
-when it is imported.
+Each runs as one of two variants, chosen by the images' size before
+launch (:func:`_cluster_plan`): the cluster variant (the default: one
+kernel a launch set, a thread-block cluster a keyframe whose shared memory
+holds the keyframe's images in row bands) or, for images larger than a
+cluster can hold, the global variant (a kernel a pass, the images in
+device memory).  Keyframes run in chunks of :data:`MAX_KEYFRAMES`, one
+launch set a chunk.  The wrappers take CUDA tensors and launch a kernel or
+raise: the CPU route and the card's reference are the per-keyframe loops
+of ``ltm_torch.kernels.blocks`` (``*_plain``), which also chooses the
+route.  The module builds and imports nothing when it is imported.
 """
 
 from __future__ import annotations
@@ -34,26 +34,14 @@ import functools
 import numpy as np
 import torch
 
-from ltm_torch.kernels.projection import (
-    _PACKED_SENTINEL,
-    _RAD2DEG,
-    NO_POINT,
-    VALID_DIFF_UB,
-    _div,
-    _pack_points,
-    _recip,
-    _sqrt,
-    spherical_project,
-    sumsq3,
-    transform,
-)
+from ltm_torch.kernels.projection import _RAD2DEG, NO_POINT, _PACKED_SENTINEL, _recip, _sqrt, sumsq3
 
-__all__ = ["MAX_KEYFRAMES", "select_blocks", "discrepancy_sweep", "winner_sweep",
-           "block_sweep_discrepancy", "block_sweep_discrepancy_vs_images",
-           "block_sweep_discrepancy_vs_images_presel", "block_fused_visibility_images",
-           "pixel_rule"]
+__all__ = ["MAX_KEYFRAMES", "select_blocks", "discrepancy_sweep", "winner_sweep", "pixel_rule"]
 
-MAX_KEYFRAMES = 64   # keyframes a launch set (their images: 2 x 64 x 112 500 f32 for K2)
+MAX_KEYFRAMES = 64   # keyframes a launch set
+_CLUSTERS = (4, 8)   # CTAs a keyframe's cluster
+_SMEM_BYTES = 232_448   # dynamic shared memory a CTA may use (sm_90; kMaxSmem in sweep.cu)
+_SMEM_HALF = 115_712   # half an SM's shared memory (228 KB, 1 KB a CTA reserved)
 
 
 def select_blocks(bm, origins: torch.Tensor, max_range: float, k_blocks: int, valid=None):
@@ -70,6 +58,23 @@ def select_blocks(bm, origins: torch.Tensor, max_range: float, k_blocks: int, va
     d = torch.where(valid & (d <= max_range), d, torch.inf)
     vals, idx = torch.topk(d, k_blocks, dim=1, largest=False)
     return idx, torch.isfinite(vals)
+
+
+def _cluster_plan(images):
+    """The cluster variant's layout of a keyframe's shared-memory images,
+    ``[(nrow, ncol), ...]`` of 4-byte pixels, each cut into row bands, one
+    band a CTA: (CTAs a cluster, rows a band of each image, shared-memory
+    bytes a CTA), with the fewest CTAs of :data:`_CLUSTERS` whose bands
+    take at most :data:`_SMEM_HALF`, else the fewest that fit
+    :data:`_SMEM_BYTES` (a large image spreads its keyframe's work over
+    more SMs); None where no cluster holds them (the global variant)."""
+    for budget in (_SMEM_HALF, _SMEM_BYTES):
+        for cs in _CLUSTERS:
+            rows = tuple(-(-nrow // cs) for nrow, _ in images)
+            smem = 4 * sum(r * ncol for r, (_, ncol) in zip(rows, images))
+            if smem <= budget:
+                return cs, rows, smem
+    return None
 
 
 # ---- checks ---------------------------------------------------------------
@@ -101,77 +106,6 @@ def _check(bm, extra, sel, sel_valid, pose_inv):
     return dev
 
 
-# ---- the plain mirror of the kernels' passes ---------------------------------
-
-def _local_points(bm, extra, sel, sel_valid, pose_inv):
-    """(local xyz (K, k·cap, 3), live mask (K, k·cap), flat slot (K, k·cap)):
-    every keyframe's selected slots in its own frame."""
-    K, k = sel.shape
-    cap = bm.mask.shape[1]
-    m = bm.mask[sel] & sel_valid[..., None]
-    if extra is not None:
-        m = m & extra.reshape(bm.mask.shape)[sel]
-    local = transform(bm.xyz[sel].reshape(K, k * cap, 3), pose_inv[:, None, :3, :3],
-                      pose_inv[:, None, :3, 3])
-    slots = sel[..., None] * cap + torch.arange(cap, device=sel.device)
-    return local, m.reshape(K, -1), slots.reshape(K, -1)
-
-
-def _stacked_min(pix, vals, n_pix: int, fill):
-    """(images (K·n_pix,), offset pixel ids): one scatter-min of every
-    keyframe's values into its own image at offset ``k·n_pix``."""
-    K = pix.shape[0]
-    off = pix + n_pix * torch.arange(K, device=pix.device)[:, None]
-    img = torch.full((K * n_pix,), fill, dtype=vals.dtype, device=pix.device)
-    img.scatter_reduce_(0, off.reshape(-1), vals.reshape(-1), "amin")
-    return img, off
-
-
-def _discrepancy_plain(bm, extra, sel, sel_valid, pose_inv, scans, scan_imgs, fov, shape,
-                       diff_threshold, reverse, out):
-    n_pix = shape[0] * shape[1]
-    if scans is not None:                                   # (a)
-        spix, srng = spherical_project(scans[0], fov, shape)
-        scan_imgs = _stacked_min(spix, torch.where(scans[1], srng, torch.inf), n_pix,
-                                 NO_POINT)[0]
-    local, m, slots = _local_points(bm, extra, sel, sel_valid, pose_inv)
-    pix, rng = spherical_project(local, fov, shape)
-    map_imgs, off = _stacked_min(pix, torch.where(m, rng, torch.inf), n_pix, NO_POINT)  # (b)
-    scan_imgs = scan_imgs.reshape(-1)
-    diff = (map_imgs - scan_imgs) if reverse else (scan_imgs - map_imgs)
-    flag = (diff > diff_threshold) & (diff < VALID_DIFF_UB)
-    g = map_imgs[off]                                       # (c)
-    dyn = m & (rng <= g) & flag[off] & (g > 0)
-    out[slots[dyn]] = True
-
-
-def _decode_stacked(img_p, proj_shape, shape, scale):
-    """``projection._decode_winner_image`` of (K, n_pix_p) packed images
-    into (K, n_pix) filter-resolution images, one scatter-min."""
-    nrow_p, ncol_p = proj_shape
-    nrow_s, ncol_s = shape
-    pidx = torch.arange(nrow_p * ncol_p, device=img_p.device)
-    wbase_r = torch.round((pidx // ncol_p).float() * (nrow_s / nrow_p)).long()
-    wbase_c = torch.round((pidx % ncol_p).float() * (ncol_s / ncol_p)).long()
-    img = img_p.long()
-    wrow = torch.clamp(wbase_r + (img // 4) % 4 - 1, 0, nrow_s - 1)
-    wcol = torch.clamp(wbase_c + img % 4 - 1, 0, ncol_s - 1)
-    wrng = torch.where(img_p != _PACKED_SENTINEL, _div((img // 16).float(), scale), torch.inf)
-    return _stacked_min(wrow * ncol_s + wcol, wrng, nrow_s * ncol_s, NO_POINT)[0]
-
-
-def _winners_plain(bm, extra, sel, sel_valid, pose_inv, fov, shape, proj_shape, scale, out,
-                   img_s):
-    local, m, slots = _local_points(bm, extra, sel, sel_valid, pose_inv)
-    packed, pix_p = _pack_points(local, m, fov, proj_shape, shape, scale)
-    img_p, off = _stacked_min(pix_p, packed, proj_shape[0] * proj_shape[1],
-                              _PACKED_SENTINEL)              # (1)
-    win = m & (packed == img_p[off])                         # (2)
-    out[slots[win]] = True
-    img_s.copy_(_decode_stacked(img_p.reshape(sel.shape[0], -1), proj_shape, shape,
-                                scale).reshape(img_s.shape))  # (3)
-
-
 # ---- the kernels -------------------------------------------------------------
 
 class _Pix(ctypes.Structure):
@@ -189,7 +123,9 @@ class _Args(ctypes.Structure):
                 ("diff_threshold", ctypes.c_float), ("scale", ctypes.c_float),
                 ("rratio", ctypes.c_float), ("cratio", ctypes.c_float),
                 ("reverse", ctypes.c_int), ("n_kf", ctypes.c_int), ("k_sel", ctypes.c_int),
-                ("cap", ctypes.c_int), ("n_scan", ctypes.c_int), ("n_blocks", ctypes.c_int)]
+                ("cap", ctypes.c_int), ("n_scan", ctypes.c_int), ("n_blocks", ctypes.c_int),
+                ("cluster", ctypes.c_int), ("band_rows", ctypes.c_int),
+                ("band_rows_p", ctypes.c_int)]
 
 
 def _pix(fov, shape) -> _Pix:
@@ -234,55 +170,83 @@ def _lists(bm, extra, sel, sel_valid, pose_inv):
             sel.to(torch.int32).contiguous(), sel_valid.contiguous(), pose_inv.contiguous())
 
 
-def _discrepancy_cuda(bm, extra, sel, sel_valid, pose_inv, scans, scan_imgs, fov, shape,
-                      diff_threshold, reverse, out):
+def _discrepancy_launch(bm, extra, sel, sel_valid, pose_inv, scans, scan_imgs, fov, shape,
+                        diff_threshold, reverse, out):
+    """One launch set of K2: the cluster variant where a cluster holds the
+    images (forward sweeps hold two), else the global variant."""
     K, k = sel.shape
     n_pix = shape[0] * shape[1]
     xyz, mask, extra, sel, sel_valid, pose_inv = _lists(bm, extra, sel, sel_valid, pose_inv)
     dev = xyz.device
     sx = sm = None
-    n_scan = 0
+    n_scan = 0 if scans is None else scans[0].shape[1]
+    if n_scan:
+        sx, sm = scans[0].contiguous(), scans[1].contiguous()
     if scans is None:
         scan_imgs = scan_imgs.contiguous()
-    else:                       # pass (a) fills the images (empty scans leave them NO_POINT)
-        scan_imgs = torch.full((K, n_pix), NO_POINT, dtype=torch.float32, device=dev)
-        n_scan = scans[0].shape[1]
-        if n_scan:
-            sx, sm = scans[0].contiguous(), scans[1].contiguous()
-    map_imgs = torch.full((K, n_pix), NO_POINT, dtype=torch.float32, device=dev)
     a = _args(fov, shape, diff_threshold=diff_threshold, reverse=int(reverse), n_kf=K,
               k_sel=k, cap=mask.shape[1], n_scan=n_scan, n_blocks=mask.shape[0])
+    plan = _cluster_plan([shape] * (1 if scans is None else 2))
+    lists = (xyz.data_ptr(), mask.data_ptr(), _ptr(extra), sel.data_ptr(), sel_valid.data_ptr(),
+             pose_inv.data_ptr(), _ptr(sx), _ptr(sm))
     with torch.cuda.device(dev):
-        rc = _lib().ltm_sweep_discrepancy(xyz.data_ptr(), mask.data_ptr(), _ptr(extra),
-                                          sel.data_ptr(), sel_valid.data_ptr(),
-                                          pose_inv.data_ptr(), _ptr(sx), _ptr(sm),
-                                          scan_imgs.data_ptr(), map_imgs.data_ptr(),
-                                          out.data_ptr(), ctypes.byref(a), _stream())
-    _raise_on(rc, "discrepancy")
-    discrepancy_sweep.launches += 1
+        if plan is not None:
+            a.cluster, (a.band_rows, *_), _ = plan
+            rc = _lib().ltm_sweep_discrepancy_cluster(*lists, _ptr(scan_imgs), out.data_ptr(),
+                                                      ctypes.byref(a), _stream())
+            _raise_on(rc, "discrepancy")
+            discrepancy_sweep.launches += 1
+            return
+        if scans is not None:   # pass (a) fills the images (empty scans leave them NO_POINT)
+            scan_imgs = torch.full((K, n_pix), NO_POINT, dtype=torch.float32, device=dev)
+        map_imgs = torch.full((K, n_pix), NO_POINT, dtype=torch.float32, device=dev)
+        rc = _lib().ltm_sweep_discrepancy_global(*lists, scan_imgs.data_ptr(),
+                                                 map_imgs.data_ptr(), out.data_ptr(),
+                                                 ctypes.byref(a), _stream())
+    _raise_on(rc, "discrepancy (global)")
+    discrepancy_sweep.global_launches += 1
 
 
-def _winners_cuda(bm, extra, sel, sel_valid, pose_inv, fov, shape, proj_shape, scale, out,
-                  img_s):
+def _winners_launch(bm, extra, sel, sel_valid, pose_inv, fov, shape, proj_shape, scale, out,
+                    img_s):
+    """One launch set of K3, the cluster variant where a cluster holds the
+    packed image (the kernel writes the filter-resolution image whole in
+    ``img_s``), else the global variant."""
     K, k = sel.shape
     xyz, mask, extra, sel, sel_valid, pose_inv = _lists(bm, extra, sel, sel_valid, pose_inv)
-    img_p = torch.full((K, proj_shape[0] * proj_shape[1]), _PACKED_SENTINEL, dtype=torch.int32,
-                       device=xyz.device)
     a = _args(fov, shape, proj_shape, scale=scale, n_kf=K, k_sel=k, cap=mask.shape[1],
               n_blocks=mask.shape[0])
+    plan = _cluster_plan([proj_shape])
+    lists = (xyz.data_ptr(), mask.data_ptr(), _ptr(extra), sel.data_ptr(), sel_valid.data_ptr(),
+             pose_inv.data_ptr())
     with torch.cuda.device(xyz.device):
-        rc = _lib().ltm_sweep_winners(xyz.data_ptr(), mask.data_ptr(), _ptr(extra),
-                                      sel.data_ptr(), sel_valid.data_ptr(), pose_inv.data_ptr(),
-                                      img_p.data_ptr(), img_s.data_ptr(), out.data_ptr(),
-                                      ctypes.byref(a), _stream())
-    _raise_on(rc, "winners")
-    winner_sweep.launches += 1
+        if plan is not None:
+            a.cluster, (a.band_rows_p,), _ = plan
+            a.band_rows = -(-shape[0] // a.cluster)
+            rc = _lib().ltm_sweep_winners_cluster(*lists, img_s.data_ptr(), out.data_ptr(),
+                                                  ctypes.byref(a), _stream())
+            _raise_on(rc, "winners")
+            winner_sweep.launches += 1
+            return
+        img_p = torch.full((K, proj_shape[0] * proj_shape[1]), _PACKED_SENTINEL,
+                           dtype=torch.int32, device=xyz.device)
+        img_s.fill_(NO_POINT)
+        rc = _lib().ltm_sweep_winners_global(*lists, img_p.data_ptr(), img_s.data_ptr(),
+                                             out.data_ptr(), ctypes.byref(a), _stream())
+    _raise_on(rc, "winners (global)")
+    winner_sweep.global_launches += 1
 
 
 # ---- the wrappers ------------------------------------------------------------
 
 def _chunks(K: int):
     return [(k0, min(K, k0 + MAX_KEYFRAMES)) for k0 in range(0, K, MAX_KEYFRAMES)]
+
+
+def _on_card(dev):
+    if dev.type != "cuda":
+        raise RuntimeError(f"the sweep kernels take CUDA tensors, not {dev}: the CPU route is "
+                           "ltm_torch.kernels.blocks' *_plain loops")
 
 
 def discrepancy_sweep(bm, extra, sel, sel_valid, pose_inv, fov, shape,
@@ -292,9 +256,9 @@ def discrepancy_sweep(bm, extra, sel, sel_valid, pose_inv, fov, shape,
     each keyframe's listed blocks (``sel``/``sel_valid``, (K, k); padding
     entries invalid), restricted to ``extra`` (flat bool or None), against
     its scan image: ``scan_imgs`` (K, n_pix), or made from ``scans`` =
-    (scans_xyz (K, S, 3), scans_mask (K, S)).  CUDA tensors launch K2 once
-    a chunk of keyframes (``discrepancy_sweep.launches``); CPU tensors take
-    the plain mirror."""
+    (scans_xyz (K, S, 3), scans_mask (K, S)).  One launch set a chunk of
+    keyframes (``discrepancy_sweep.launches``, the cluster variant;
+    ``.global_launches``, the global variant).  CUDA tensors only."""
     dev = _check(bm, extra, sel, sel_valid, pose_inv)
     K = sel.shape[0]
     n_pix = shape[0] * shape[1]
@@ -309,87 +273,59 @@ def discrepancy_sweep(bm, extra, sel, sel_valid, pose_inv, fov, shape,
     elif (scan_imgs.dtype != torch.float32 or scan_imgs.shape != (K, n_pix)
           or scan_imgs.device != dev):
         raise ValueError(f"scan_imgs must be float32 (K, {n_pix}) on {dev}")
+    _on_card(dev)
     out = torch.zeros_like(bm.mask)
     if K == 0 or sel.shape[1] == 0:
         return out
-    run = _discrepancy_cuda if dev.type == "cuda" else _discrepancy_plain
     flat = out.reshape(-1)
     for k0, k1 in _chunks(K):
         part = None if scans is None else (scans[0][k0:k1], scans[1][k0:k1])
-        run(bm, extra, sel[k0:k1], sel_valid[k0:k1], pose_inv[k0:k1], part,
-            None if scan_imgs is None else scan_imgs[k0:k1], fov, shape, diff_threshold,
-            reverse, flat)
+        _discrepancy_launch(bm, extra, sel[k0:k1], sel_valid[k0:k1], pose_inv[k0:k1], part,
+                            None if scan_imgs is None else scan_imgs[k0:k1], fov, shape,
+                            diff_threshold, reverse, flat)
     return out
 
 
-discrepancy_sweep.launches = 0   # launch sets of K2 (one a chunk of keyframes)
+discrepancy_sweep.launches = 0          # K2 launch sets, the cluster variant
+discrepancy_sweep.global_launches = 0   # K2 launch sets, the global variant
 
 
 def winner_sweep(bm, extra, sel, sel_valid, pose_inv, fov, shape, proj_shape, scale: float):
     """K3: ((n_blocks, cap) OR over keyframes of the winner mask at
     ``proj_shape``, (K, n_pix) filter-resolution images of the winners)
-    from one packed scatter-min a keyframe over its listed blocks.  CUDA
-    tensors launch K3 once a chunk of keyframes
-    (``winner_sweep.launches``); CPU tensors take the plain mirror."""
+    from one packed scatter-min a keyframe over its listed blocks.  One
+    launch set a chunk of keyframes (``winner_sweep.launches``, the cluster
+    variant; ``.global_launches``, the global variant).  CUDA tensors
+    only."""
     dev = _check(bm, extra, sel, sel_valid, pose_inv)
     if shape[0] > proj_shape[0] or shape[1] > proj_shape[1]:
         raise ValueError(f"shape {shape} must be no finer than proj_shape {proj_shape}")
+    _on_card(dev)
     K = sel.shape[0]
     out = torch.zeros_like(bm.mask)
-    imgs = torch.full((K, shape[0] * shape[1]), NO_POINT, dtype=torch.float32, device=dev)
+    imgs = torch.empty((K, shape[0] * shape[1]), dtype=torch.float32, device=dev)
     if K == 0 or sel.shape[1] == 0:
-        return out, imgs
-    run = _winners_cuda if dev.type == "cuda" else _winners_plain
+        return out, imgs.fill_(NO_POINT)
     flat = out.reshape(-1)
     for k0, k1 in _chunks(K):
-        run(bm, extra, sel[k0:k1], sel_valid[k0:k1], pose_inv[k0:k1], fov, shape, proj_shape,
-            scale, flat, imgs[k0:k1])
+        _winners_launch(bm, extra, sel[k0:k1], sel_valid[k0:k1], pose_inv[k0:k1], fov, shape,
+                        proj_shape, scale, flat, imgs[k0:k1])
     return out, imgs
 
 
-winner_sweep.launches = 0        # launch sets of K3 (one a chunk of keyframes)
+winner_sweep.launches = 0          # K3 launch sets, the cluster variant
+winner_sweep.global_launches = 0   # K3 launch sets, the global variant
 
 
-# ---- blocks.py's sweeps through the kernels ----------------------------------
-
-def block_sweep_discrepancy(bm, scans_xyz, scans_mask, pose_inv, poses, fov, shape,
-                            k_blocks: int, max_range: float = 200.0,
-                            diff_threshold: float = 0.1, reverse: bool = False):
-    """``blocks.block_sweep_discrepancy`` through K2."""
-    sel, val = select_blocks(bm, poses[:, :3, 3], max_range, k_blocks)
-    return discrepancy_sweep(bm, None, sel, val, pose_inv, fov, shape, diff_threshold, reverse,
-                             scans=(scans_xyz, scans_mask)).reshape(-1)
-
-
-def block_sweep_discrepancy_vs_images(target_bm, target_extra, scan_imgs, pose_inv, poses, fov,
-                                      shape, k_blocks: int, max_range: float = 200.0,
-                                      diff_threshold: float = 0.1, reverse: bool = False):
-    """``blocks.block_sweep_discrepancy_vs_images`` through K2: only blocks
-    that hold a target point are selected."""
-    occupied = target_bm.block_valid & torch.any(
-        target_bm.mask & target_extra.reshape(target_bm.mask.shape), dim=1)
-    sel, val = select_blocks(target_bm, poses[:, :3, 3], max_range, k_blocks, valid=occupied)
-    return discrepancy_sweep(target_bm, target_extra, sel, val, pose_inv, fov, shape,
-                             diff_threshold, reverse, scan_imgs=scan_imgs).reshape(-1)
-
-
-def block_sweep_discrepancy_vs_images_presel(target_bm, target_extra, scan_imgs, pose_inv,
-                                             sel_idx, sel_valid, fov, shape,
-                                             diff_threshold: float = 0.1,
-                                             reverse: bool = False):
-    """``blocks.block_sweep_discrepancy_vs_images_presel`` through K2, on
-    the given (K, k_sel) lists."""
-    return discrepancy_sweep(target_bm, target_extra, sel_idx, sel_valid, pose_inv, fov, shape,
-                             diff_threshold, reverse, scan_imgs=scan_imgs).reshape(-1)
-
-
-def block_fused_visibility_images(source_bm, source_extra, pose_inv, poses, fov, shape,
-                                  proj_shape, k_blocks: int, max_range: float, scale: float):
-    """``blocks.block_fused_visibility_images`` through K3."""
-    sel, val = select_blocks(source_bm, poses[:, :3, 3], max_range, k_blocks)
-    win, imgs = winner_sweep(source_bm, source_extra, sel, val, pose_inv, fov, shape,
-                             proj_shape, scale)
-    return win.reshape(-1), imgs
+def cluster_occupancy(kernel: str, cluster: int, smem: int) -> int:
+    """The clusters of ``cluster`` CTAs with ``smem`` bytes of shared
+    memory each that the card holds at once, for ``kernel`` "k2" or "k3"
+    (``cudaOccupancyMaxActiveClusters``; a launch set of more keyframes
+    runs in waves)."""
+    fits = ctypes.c_int(0)
+    _raise_on(_lib().ltm_sweep_cluster_occupancy(("k2", "k3").index(kernel), cluster, smem,
+                                                 ctypes.byref(fits)), "occupancy query")
+    return fits.value
 
 
 def pixel_rule(xyz, pose_inv, fov, shape, proj_shape, scale: float):
@@ -428,15 +364,25 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int   # pointers as c_void_p: no 32-bit cut
     args = ctypes.POINTER(_Args)
     lib.ltm_sweep_args_size.restype = i
-    lib.ltm_sweep_discrepancy.argtypes = [p] * 11 + [args, p]
-    lib.ltm_sweep_discrepancy.restype = i
-    lib.ltm_sweep_winners.argtypes = [p] * 9 + [args, p]
-    lib.ltm_sweep_winners.restype = i
+    lib.ltm_sweep_discrepancy_global.argtypes = [p] * 11 + [args, p]
+    lib.ltm_sweep_discrepancy_global.restype = i
+    lib.ltm_sweep_winners_global.argtypes = [p] * 9 + [args, p]
+    lib.ltm_sweep_winners_global.restype = i
+    lib.ltm_sweep_discrepancy_cluster.argtypes = [p] * 10 + [args, p]
+    lib.ltm_sweep_discrepancy_cluster.restype = i
+    lib.ltm_sweep_winners_cluster.argtypes = [p] * 8 + [args, p]
+    lib.ltm_sweep_winners_cluster.restype = i
     lib.ltm_sweep_pixel_rule.argtypes = [p, i, p, p, p, p, p, args, p]
     lib.ltm_sweep_pixel_rule.restype = i
     lib.ltm_sweep_error_string.argtypes = [i]
     lib.ltm_sweep_error_string.restype = ctypes.c_char_p
+    lib.ltm_sweep_max_smem.restype = i
+    lib.ltm_sweep_cluster_occupancy.argtypes = [i, i, i, p]
+    lib.ltm_sweep_cluster_occupancy.restype = i
     if lib.ltm_sweep_args_size() != ctypes.sizeof(_Args):
         raise RuntimeError(f"csrc/sweep.cu's SweepArgs has {lib.ltm_sweep_args_size()} bytes; "
                            f"the wrapper's _Args {ctypes.sizeof(_Args)}")
+    if lib.ltm_sweep_max_smem() != _SMEM_BYTES:
+        raise RuntimeError(f"csrc/sweep.cu's kMaxSmem is {lib.ltm_sweep_max_smem()}; the "
+                           f"wrapper's _SMEM_BYTES {_SMEM_BYTES}")
     return lib

@@ -81,15 +81,46 @@ def _opt_rotation(H: torch.Tensor) -> torch.Tensor:
     return torch.where(need_svd[..., None, None], R_svd, X)
 
 
+# On the card a lane's sums must not depend on its batch: cuBLAS picks a
+# batched GEMM's kernel by the batch count (a lane alone took a split-K
+# kernel), and a reduction's launch shape, so its order, follows the number
+# of outputs, so a lane summed its terms in another order alone than inside
+# a batch of 8, and ICP's result depended on its batch.  There each lane's
+# sum over its points and each lane's small matrix product is one call of
+# one lane's shape.  On the CPU the batched calls already give each lane
+# the bits of a lane alone.
+
+def _lane_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``torch.sum(x, dim)`` over each lane's points: ``x`` is (B, N) or
+    (B, N, 3), lanes first; a call a lane on the card."""
+    if not x.is_cuda:
+        return torch.sum(x, dim)
+    d = dim % x.dim() - 1
+    return torch.stack([torch.sum(lane, d) for lane in x])
+
+
+def _lane_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` a lane, lanes first (B, m, k) @ (B, k, n); one GEMM a lane
+    on the card."""
+    if not a.is_cuda:
+        return torch.matmul(a, b)
+    return torch.stack([torch.mm(x.contiguous(), y.contiguous()) for x, y in zip(a, b)])
+
+
+def _cross_covariance(a: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """``aᵀ d`` a lane, (B, 3, 3) from (B, N, 3) pairs."""
+    return _lane_matmul(a.transpose(-1, -2), d)
+
+
 def _umeyama_rigid(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Weighted least-squares rigid transform dst ≈ R @ src + t, (..., 4, 4)."""
-    wsum = torch.clamp(torch.sum(w, -1), min=1e-12)[..., None]
+    wsum = torch.clamp(_lane_sum(w, -1), min=1e-12)[..., None]
     ws = w[..., None]
-    cs = torch.sum(src * ws, -2) / wsum
-    cd = torch.sum(dst * ws, -2) / wsum
-    H = torch.matmul(((src - cs[..., None, :]) * ws).transpose(-1, -2), dst - cd[..., None, :])
+    cs = _lane_sum(src * ws, -2) / wsum
+    cd = _lane_sum(dst * ws, -2) / wsum
+    H = _cross_covariance((src - cs[..., None, :]) * ws, dst - cd[..., None, :])
     R = _opt_rotation(H)
-    t = cd - torch.matmul(R, cs[..., None])[..., 0]
+    t = cd - _lane_matmul(R, cs[..., None])[..., 0]
     return se3.from_rot_trans(R, t)
 
 
@@ -126,9 +157,9 @@ def _iterate(src, sm, tgt, tm, st: _Lanes, it_cap: int, max_d2: float, trans_eps
         w = (sm & (d2 <= max_d2)).to(src.dtype)
         dst = torch.gather(tgt, -2, idx[..., None].expand(idx.shape + (3,)))
         delta = _umeyama_rigid(moved, dst, w)
-        T_new = torch.matmul(delta, st.T)
+        T_new = _lane_matmul(delta, st.T)
         eps_hit = _transform_eps_hit(delta, trans_eps)
-        mse = torch.sum(w * d2, -1) / torch.clamp(torch.sum(w, -1), min=1.0)
+        mse = _lane_sum(w * d2, -1) / torch.clamp(_lane_sum(w, -1), min=1.0)
         mse_hit = torch.abs(mse - st.prev_mse) < fit_eps
         crit = torch.where(eps_hit, CRIT_TRANSFORM_EPS,
                            torch.where(mse_hit, CRIT_ABS_MSE, st.crit)).to(torch.int32)
@@ -164,7 +195,8 @@ def fitness_score(src_xyz, src_mask, tgt_xyz, tgt_mask, T, tile: int = 4096):
     moved = se3.transform_points(T, src_xyz)
     d2, _ = nn_sqdist_argmin(moved, src_mask, tgt_xyz, tgt_mask, tile=tile)
     w = src_mask.to(src_xyz.dtype)
-    return torch.sum(torch.where(src_mask, d2, 0.0), -1) / torch.clamp(torch.sum(w, -1), min=1.0)
+    return (_lane_sum(torch.where(src_mask, d2, 0.0), -1)
+            / torch.clamp(_lane_sum(w, -1), min=1.0))
 
 
 def icp_batch(src_xyz, src_mask, tgt_xyz, tgt_mask, init_transforms=None,

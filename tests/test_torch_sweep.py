@@ -1,12 +1,14 @@
-"""ltm_torch.kernels.sweep on the CPU: the plain mirror of the sweep kernels
-K2 and K3 (batched block selection, every keyframe's image at offset
-``k·n_pix``, one scatter-min a pass, the decoded gather rule, keyframe
-chunks) against the per-keyframe loops of ``ltm_torch.kernels.blocks``
-(``*_plain``), bit for bit, and against ``ltm``'s jitted sweeps within
-``test_torch_blocks.py``'s rule (masks equal but at points whose local
-range or pixel rounds differently, or that share a pixel with one).  Then
-the edge cases the card checks (``chip_smoke.py``), the wrappers' argument
-checks, and the batched selection against ``_select_blocks``.
+"""LT-removert's four default block sweeps on the CPU route: the
+per-keyframe loops of ``ltm_torch.kernels.blocks`` (``*_plain``, which the
+public functions run on CPU tensors and which the card holds K2 and K3
+to), against ``ltm``'s jitted sweeps within ``test_torch_blocks.py``'s rule
+(masks equal but at points whose local range or pixel rounds differently,
+or that share a pixel with one), on the session's map and on a synthetic
+survey.  Then the properties the kernels' launch sets rely on (keyframes
+in chunks, ``k_blocks`` past the range ball, an all-masked keyframe,
+far-padded keyframes, a point at range 0), the kernel wrappers' argument
+checks and their refusal of CPU tensors, and the batched selection against
+``_select_blocks``.
 """
 
 import jax.numpy as jnp
@@ -71,7 +73,7 @@ def _target(js):
     ("forward", False), ("forward", True), ("vs_images", False), ("vs_images", True),
     ("presel", False), ("presel", True), ("fused", False)])
 def test_mirror_against_ltm_and_plain(sessions, ltm_images, name, reverse):  # noqa: F811
-    """Each of the four sweeps through the mirror: bit-equal to the
+    """Each of the four sweeps on the CPU route: bit-equal to the
     per-keyframe plain version, and to ``ltm`` but at affected points."""
     js, ts, _ = sessions
     K = js.num_keyframes
@@ -86,14 +88,14 @@ def test_mirror_against_ltm_and_plain(sessions, ltm_images, name, reverse):  # n
         args = (bt, ts.scans_xyz[:K], ts.scans_mask[:K], pinv, poses, FOV, SHAPE)
         ref = jb.block_sweep_discrepancy(bj, js.scans_xyz[:K], js.scans_mask[:K], *j_args,
                                          SHAPE, **kw)
-        got = sweep.block_sweep_discrepancy(*args, **kw)
+        got = tb.block_sweep_discrepancy(*args, **kw)
         plain = tb.block_sweep_discrepancy_plain(*args, **kw)
         xyz = np.asarray(bj.xyz).reshape(-1, 3)
     elif name == "fused":
         kw = dict(k_blocks=nb, max_range=400.0, scale=SCALE)
         args = (ts.bm, ts.map_mask, pinv, poses, FOV, SHAPE, PROJ)
         ref = jb.block_fused_visibility_images(js.bm, js.map_mask, *j_args, SHAPE, PROJ, **kw)
-        got = sweep.block_fused_visibility_images(*args, **kw)
+        got = tb.block_fused_visibility_images(*args, **kw)
         plain = tb.block_fused_visibility_images_plain(*args, **kw)
         _equal(got, plain)
         xyz = np.asarray(js.bm.xyz).reshape(-1, 3)
@@ -110,7 +112,7 @@ def test_mirror_against_ltm_and_plain(sessions, ltm_images, name, reverse):  # n
             args = (bt, bt.mask.reshape(-1), imgs, pinv, poses, FOV, SHAPE)
             ref = jb.block_sweep_discrepancy_vs_images(bj, bj.mask.reshape(-1), ltm_images,
                                                        *j_args, SHAPE, **kw)
-            got = sweep.block_sweep_discrepancy_vs_images(*args, **kw)
+            got = tb.block_sweep_discrepancy_vs_images(*args, **kw)
             plain = tb.block_sweep_discrepancy_vs_images_plain(*args, **kw)
         else:
             # every occupied block, in a shuffled list padded with invalid entries
@@ -127,14 +129,14 @@ def test_mirror_against_ltm_and_plain(sessions, ltm_images, name, reverse):  # n
             ref = jb.block_sweep_discrepancy_vs_images_presel(
                 bj, bj.mask.reshape(-1), ltm_images, js.poses_inv[:K], jnp.asarray(sel),
                 jnp.asarray(val), FOV, SHAPE, **kw)
-            got = sweep.block_sweep_discrepancy_vs_images_presel(*args, **kw)
+            got = tb.block_sweep_discrepancy_vs_images_presel(*args, **kw)
             plain = tb.block_sweep_discrepancy_vs_images_presel_plain(*args, **kw)
         xyz = np.asarray(bj.xyz).reshape(-1, 3)
     _equal(got, plain)
     _assert_only_affected(ref, got, _affected(xyz, np.asarray(js.poses_inv), K, shapes))
 
 
-# ---- edge cases, mirror against the plain loops ---------------------------------
+# ---- a synthetic survey ---------------------------------------
 
 @pytest.fixture(scope="module")
 def world():
@@ -174,26 +176,29 @@ def world():
                 smask=torch.from_numpy(smask), kb=kb, extra=extra, imgs=imgs)
 
 
-def _run(w, name, mod, reverse=False, k_blocks=None, K=None):
-    """One sweep of ``mod`` (``sweep`` or ``blocks`` with ``_plain``) on the
-    world's first K keyframes."""
-    sfx = "" if mod is sweep else "_plain"
+def _run(w, name, mod=tb, reverse=False, k_blocks=None, K=None):
+    """One sweep on the world's first K keyframes: ``mod`` is ``tb`` (the
+    CPU route) or ``jb`` (``ltm``, on the world turned into JAX arrays)."""
     K = w["pinv"].shape[0] if K is None else K
     kb = w["kb"] if k_blocks is None else k_blocks
+    if mod is jb:
+        w = {k: jnp.asarray(v.numpy()) if isinstance(v, torch.Tensor) else v
+             for k, v in w.items()}
+        w["bm"] = jb.BlockMap(*(jnp.asarray(f.numpy()) for f in w["bm_t"]))
     pinv, poses, bm = w["pinv"][:K], w["poses"][:K], w["bm"]
     if name == "forward":
-        return getattr(mod, "block_sweep_discrepancy" + sfx)(
+        return mod.block_sweep_discrepancy(
             bm, w["scans"][:K], w["smask"][:K], pinv, poses, FOV, SHAPE, k_blocks=kb,
             max_range=45.0, diff_threshold=0.1, reverse=reverse)
     if name == "vs_images":
-        return getattr(mod, "block_sweep_discrepancy_vs_images" + sfx)(
+        return mod.block_sweep_discrepancy_vs_images(
             bm, w["extra"], w["imgs"][:K], pinv, poses, FOV, SHAPE, k_blocks=kb,
             max_range=45.0, diff_threshold=0.1, reverse=reverse)
     if name == "presel":
-        return getattr(mod, "block_sweep_discrepancy_vs_images_presel" + sfx)(
+        return mod.block_sweep_discrepancy_vs_images_presel(
             bm, w["extra"], w["imgs"][:K], pinv, w["sel"][:K], w["val"][:K], FOV, SHAPE,
             diff_threshold=0.1, reverse=reverse)
-    return getattr(mod, "block_fused_visibility_images" + sfx)(
+    return mod.block_fused_visibility_images(
         bm, w["extra"], pinv, poses, FOV, SHAPE, PROJ, k_blocks=kb, max_range=45.0,
         scale=SCALE)
 
@@ -204,7 +209,20 @@ def _with_presel(w):
     sel, val = sweep.select_blocks(w["bm"], w["poses"][:, :3, 3], 45.0, w["kb"])
     sel = torch.cat([sel.flip(1), torch.zeros_like(sel[:, :9])], 1)
     val = torch.cat([val.flip(1), torch.zeros_like(val[:, :9])], 1)
-    return dict(w, sel=sel, val=val)
+    return dict(w, sel=sel, val=val, bm_t=w["bm"])
+
+
+def _or_chunks(w, name, reverse, chunks):
+    """The sweep run a chunk of keyframes at a time, the masks OR-ed and the
+    images concatenated (what one launch set a chunk computes)."""
+    parts = []
+    for k0, k1 in chunks:
+        wc = dict(w, **{k: w[k][k0:k1] for k in ("pinv", "poses", "scans", "smask", "imgs",
+                                                  "sel", "val")})
+        parts.append(_run(wc, name, reverse=reverse))
+    if isinstance(parts[0], tuple):
+        return (torch.stack([p[0] for p in parts]).any(0), torch.cat([p[1] for p in parts]))
+    return torch.stack(parts).any(0)
 
 
 _SWEEPS = [("forward", False), ("forward", True), ("vs_images", False), ("vs_images", True),
@@ -213,40 +231,62 @@ _SWEEPS = [("forward", False), ("forward", True), ("vs_images", False), ("vs_ima
 
 @pytest.mark.parametrize("name,reverse", _SWEEPS)
 def test_mirror_bit_equal_plain(world, name, reverse):
+    """The survey's sweeps on the CPU route against ``ltm``'s jitted sweeps
+    on the same block map, but at affected points."""
     w = _with_presel(world)
-    got, plain = _run(w, name, sweep, reverse), _run(w, name, tb, reverse)
-    _equal(got, plain)
-    flagged = (got[0] if isinstance(got, tuple) else got).sum()
-    assert flagged > 50, int(flagged)
+    got, ref = _run(w, name, tb, reverse), _run(w, name, jb, reverse)
+    xyz = w["bm"].xyz.reshape(-1, 3).numpy()
+    K = w["pinv"].shape[0]
+    if isinstance(got, tuple):
+        aff = _affected(xyz, w["pinv"].numpy(), K, [SHAPE, PROJ])
+        _assert_only_affected(ref[0], got[0], aff, min_set=51)
+        assert (np.asarray(ref[1]) != got[1].numpy()).sum() <= 2 * aff.sum()
+    else:
+        _assert_only_affected(ref, got, _affected(xyz, w["pinv"].numpy(), K, [SHAPE]),
+                              min_set=51)
 
 
 @pytest.mark.parametrize("name,reverse", _SWEEPS)
 def test_forced_keyframe_chunks(world, monkeypatch, name, reverse):
-    """Keyframes in chunks of 1 and of 3 give the unchunked bits."""
+    """The keyframes in the wrappers' chunks of 1 and of 3 (``sweep._chunks``),
+    each chunk swept alone and the results OR-ed, give the whole call's
+    bits: a sweep is the OR of its keyframes' sweeps."""
     w = _with_presel(world)
-    whole = _run(w, name, sweep, reverse)
+    whole = _run(w, name, reverse=reverse)
+    K = w["pinv"].shape[0]
     for cap in (1, 3):
         monkeypatch.setattr(sweep, "MAX_KEYFRAMES", cap)
-        _equal(_run(w, name, sweep, reverse), whole)
+        chunks = sweep._chunks(K)
+        assert chunks[0][0] == 0 and chunks[-1][1] == K and len(chunks) == -(-K // cap)
+        assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+        _equal(_or_chunks(w, name, reverse, chunks), whole)
 
 
 @pytest.mark.parametrize("name", ["forward", "vs_images", "fused"])
 def test_all_blocks_selected(world, name):
-    """``k_blocks == n_blocks``: the whole map a keyframe."""
+    """``k_blocks == n_blocks`` (the whole map a keyframe) gives the bits of
+    the exact range-ball ``k_blocks``: blocks past the ball add nothing."""
     nb = world["bm"].num_blocks
-    _equal(_run(world, name, sweep, k_blocks=nb), _run(world, name, tb, k_blocks=nb))
+    _equal(_run(world, name, k_blocks=nb), _run(world, name))
 
 
 @pytest.mark.parametrize("name", ["forward", "vs_images", "presel", "fused"])
 def test_no_keyframes(world, name):
-    """K = 0: nothing launched, all-False masks and (0, n_pix) images."""
+    """K = 0: all-False masks and (0, n_pix) images; the kernel wrappers
+    refuse CPU tensors even with nothing to launch."""
     w = _with_presel(world)
-    got, plain = _run(w, name, sweep, K=0), _run(w, name, tb, K=0)
-    _equal(got, plain)
+    got = _run(w, name, K=0)
     if isinstance(got, tuple):
         assert got[1].shape == (0, SHAPE[0] * SHAPE[1])
         got = got[0]
     assert got.shape == (w["bm"].mask.numel(),) and not got.any()
+    bm = w["bm"]
+    args = (bm, w["extra"], w["sel"][:0], w["val"][:0], w["pinv"][:0], FOV, SHAPE)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if name == "fused":
+            sweep.winner_sweep(*args, PROJ, SCALE)
+        else:
+            sweep.discrepancy_sweep(*args, scan_imgs=w["imgs"][:0])
 
 
 def test_range_zero_point_never_flagged(world):
@@ -261,22 +301,26 @@ def test_range_zero_point_never_flagged(world):
     imgs = torch.full((1, SHAPE[0] * SHAPE[1]), 50.0)
     args = (bm, bm.mask.reshape(-1), imgs, world["pinv"][:1], world["poses"][:1], FOV, SHAPE)
     kw = dict(k_blocks=world["kb"], max_range=45.0, diff_threshold=0.1)
-    got = sweep.block_sweep_discrepancy_vs_images(*args, **kw)
+    got = tb.block_sweep_discrepancy_vs_images(*args, **kw)
     _equal(got, tb.block_sweep_discrepancy_vs_images_plain(*args, **kw))
     assert got.sum() > 100 and not bool(got[slot])
-    win, _ = sweep.block_fused_visibility_images(bm, bm.mask.reshape(-1), world["pinv"][:1],
-                                                 world["poses"][:1], FOV, SHAPE, PROJ,
-                                                 k_blocks=world["kb"], max_range=45.0,
-                                                 scale=SCALE)
+    win, _ = tb.block_fused_visibility_images(bm, bm.mask.reshape(-1), world["pinv"][:1],
+                                              world["poses"][:1], FOV, SHAPE, PROJ,
+                                              k_blocks=world["kb"], max_range=45.0,
+                                              scale=SCALE)
     assert bool(win[slot])      # it wins its proj pixel: nothing lies nearer
 
 
 def test_all_masked_keyframe(world):
-    """A keyframe whose scan is all masked sees an all-NO_POINT image."""
+    """A keyframe whose scan is all masked sees an all-NO_POINT image, which
+    flags nothing: the sweep equals the sweep without that keyframe."""
     w = dict(world, smask=world["smask"].clone())
     w["smask"][1] = False
-    _equal(_run(w, "forward", sweep), _run(w, "forward", tb))
-    _equal(_run(w, "forward", sweep, reverse=True), _run(w, "forward", tb, reverse=True))
+    keep = [0, 2, 3]
+    w3 = dict(w, **{k: w[k][keep] for k in ("pinv", "poses", "scans", "smask")})
+    for reverse in (False, True):
+        got = _run(w, "forward", reverse=reverse)
+        _equal(got, _run(w3, "forward", reverse=reverse))
 
 
 @pytest.mark.parametrize("name", ["forward", "vs_images", "fused"])
@@ -294,13 +338,13 @@ def test_far_padded_keyframes(world, name):
                                                        tp.NO_POINT)]))
     sel, val = sweep.select_blocks(w["bm"], poses[:, :3, 3], 45.0, w["kb"])
     assert not val[-pad:].any()
-    got = _run(w, name, sweep)
-    _equal(got, _run(w, name, tb))
+    got = _run(w, name)
     if isinstance(got, tuple):
-        _equal(got[0], _run(world, name, sweep)[0])
+        _equal(got[0], _run(world, name)[0])
+        _equal(got[1][:-pad], _run(world, name)[1])
         assert bool((got[1][-pad:] == tp.NO_POINT).all())
     else:
-        _equal(got, _run(world, name, sweep))
+        _equal(got, _run(world, name))
 
 
 # ---- selection ------------------------------------------------------------------
@@ -369,3 +413,16 @@ def test_winner_and_selection_checks(world):
         sweep.select_blocks(bm, world["poses"][:, :3, 3], 45.0, bm.num_blocks + 1)
     with pytest.raises(ValueError, match="card"):      # the pixel-rule check is card-only
         sweep.pixel_rule(bm.xyz.reshape(-1, 3), world["pinv"][0], FOV, SHAPE, PROJ, SCALE)
+
+
+def test_wrappers_refuse_cpu_tensors(world):
+    """Arguments that pass every check still raise on CPU tensors: the
+    wrappers launch a kernel or raise, and the CPU route is the plain loops."""
+    bad = _bad_calls(world)
+    good = {k: v for k, v in bad["float64_map"].items()}
+    good["bm"] = world["bm"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sweep.discrepancy_sweep(**good)
+    del good["scan_imgs"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sweep.winner_sweep(**good, proj_shape=PROJ, scale=SCALE)
