@@ -9,9 +9,9 @@ It builds the hand-written CUDA kernels from ``ltm_torch/csrc`` (nvcc,
 sm_90a), then runs fourteen phases, each of which raises on failure:
 
   1. device and build: the card, PyTorch/CUDA versions, kernel build time,
-     the ``-Xptxas -v`` report of every source, and the 2-NN scan's hot
-     block read from ``cuobjdump -sass`` (full dump in
-     ``knn2.sass`` under ``OUT_DIR``);
+     the ``-Xptxas -v`` report of every source, and the hot blocks of the
+     2-NN scan and the 1-NN scan read from ``cuobjdump -sass`` (full dumps
+     in ``knn2.sass`` and ``nn.sass`` under ``OUT_DIR``);
   2. kernels vs plain on the card, bit for bit: ``knn2_sqdists`` (K1) on a
      masked case, duplicate targets, duplicates straddling a target-split
      boundary, a split-heavy case, all queries invalid, no valid target,
@@ -37,8 +37,13 @@ sm_90a), then runs fourteen phases, each of which raises on failure:
      cluster of 8 CTAs, each launched twice and bit-equal to its
      ``*_plain`` loop, and the cluster variant's device memory (no image
      allocated); the solver's fixed-order scatter-sum
-     (``csrc/scatter.cu``) on a pose graph's shape, bit-equal to its plain
-     version;
+     (``csrc/scatter.cu``) on a pose graph's shape, rows of 1 to 70
+     elements, bit-equal to its plain version; K5b, the ICP 1-NN
+     (``csrc/nn_argmin.cu``), on nine cases against
+     ``nn_sqdist_argmin_plain`` (indices equal except at counted
+     near-ties, distances bit-equal where they agree, a lane alone equal
+     to the same lane in its batch; duplicated targets, a lane without a
+     valid target, a split boundary, the farm's largest shape, timed);
   3. card vs CPU: ``Removerter.run`` on a small synthetic survey on the CPU
      (plain versions) and on the card (kernels); the 14 named point sets
      agree within max(2, 1e-4·|set|) points;
@@ -75,11 +80,14 @@ sm_90a), then runs fourteen phases, each of which raises on failure:
      each call of the path's hot loops (the ICP 1-NN, the Scan Context
      distance, the polar-bin scatter-max, the tridiagonal sweeps) with a
      sync on each side (outside the PCG's graph replays), the largest
-     1-NN call against its bound and
+     1-NN call (K5b) against the plain version, its bound and
      ``torch.cdist``, one run with 10 RS loops (ATE ≤ 0.10 m) and one at
-     ``odom_noise=4e-3`` (ATE ≤ 0.25 m); the scatter-sum kernel must
-     launch, and its largest calls of the warm-up run are held to the
-     plain version and timed against their bound and ``index_add_``;
+     ``odom_noise=4e-3`` (ATE ≤ 0.25 m); every 1-NN call of the warm-up
+     run is held to the plain version as it happens (``NnFarmCheck``),
+     K5b must launch once a 1-NN call, LT-SLAM's peak memory is recorded;
+     the scatter-sum kernel must launch, and its largest calls of the
+     warm-up run are held to the plain version and timed against their
+     bound and ``index_add_``, wrapper and device time;
   9. ``python -m ltm_torch.cli.ltmapper`` in a subprocess on session
      directories of 40 keyframes x 8 000 points a session: ``ltslam/``
      holds the eight trajectory files and ``removert/`` equals
@@ -141,8 +149,8 @@ It prints the ``{"kernels": [...]}`` line, the ``{"slam": {...}}`` line
 (phases 7-9), the ``{"lifelong": ..., "optin": ..., "headline": ..., "mesh": ...,
 "slam_mesh": ...}`` line (phases 10-14), then the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.  The ``kernels`` line lists K1, K4, K2
-and K3 (each with both variants) and the solver's scatter-sum; the rest of
-the LT-SLAM path's hot loops are PyTorch ops, measured in phase 8.  Without a
+and K3 (each with both variants), the solver's scatter-sum and K5b; the
+rest of the LT-SLAM path's hot loops are PyTorch ops, measured in phase 8.  Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero
 and prints no result.  The port imports neither ``jax`` nor ``ltm``.
 """
@@ -380,8 +388,10 @@ def compare_chunk(name, q, qm, bm, extra, clamp_radius, k=2, chunk=256, k_blocks
     timed whole, by its parts (the prep: keys, sort and bounds; the scan:
     cull, scoring and merge), with the scan at segments of 4, 8 and 16
     listed blocks (each with the same bits), by kernel under the profiler,
-    and against its bound and the K1 yardstick (the same targets through
-    ``knn2_sqdists`` plus the clamp).  Returns stats."""
+    and against its bound, the K1 yardstick (the same targets through
+    ``knn2_sqdists`` plus the clamp) and ``library_knn2_ms`` (``cdist`` +
+    ``topk`` over the same valid points, query-chunked, unclamped).
+    Returns stats."""
     import torch
 
     from ltm_torch.kernels import chunk_knn as ck
@@ -451,6 +461,7 @@ def compare_chunk(name, q, qm, bm, extra, clamp_radius, k=2, chunk=256, k_blocks
         r2 = torch.tensor(clamp_radius * clamp_radius, dtype=torch.float32, device=q.device)
         stats["k1_yardstick_ms"] = cuda_ms(lambda: torch.minimum(knn2_sqdists(q, qm, t, tm), r2),
                                            reps=3)
+        stats["library_ms"] = library_knn2_ms(q, qm, t, tm)
     # comparison launches do not count
     (chunk_knn_sqdists.launches, chunk_knn_sqdists.merges, knn2_sqdists.launches,
      knn2_sqdists.merges) = before
@@ -480,12 +491,13 @@ def seg_sweep(name, want, q, qm, order, targets, bounds, clamp_radius, chunk, k_
     return {str(seg): statistics.median(t) for seg, t in times.items()}
 
 
-def sass_hot_blocks(lib_path):
-    """The hot block of ``knn2_scan`` in the built library, from
-    ``cuobjdump -sass``: the basic block with the most FFMA, which is one
-    group's fast path (its 32 pairs' arithmetic, their OR-ed top-2 test and
-    the branch).  Instructions, pairs (one FMUL each), instructions a pair
-    and the opcode counts.  The full dump goes to ``chiprun_out/knn2.sass``."""
+def sass_hot_blocks(lib_path, kernel="knn2_scan"):
+    """The hot block of ``kernel`` (``knn2_scan`` or ``nn_scan``) in the
+    built library, from ``cuobjdump -sass``: the basic block with the most
+    FFMA, which is one group's fast path (its 32 pairs' arithmetic, their
+    OR-ed test and the branch).  Instructions, pairs (one FMUL each),
+    instructions a pair and the opcode counts.  The full dump goes to
+    ``chiprun_out/<library>.sass``."""
     exe = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(exe):
@@ -493,10 +505,10 @@ def sass_hot_blocks(lib_path):
     text = subprocess.run([exe, "-sass", lib_path], capture_output=True, text=True,
                           timeout=120, check=True).stdout
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "knn2.sass"), "w") as f:
+    with open(os.path.join(OUT_DIR, kernel.split("_")[0] + ".sass"), "w") as f:
         f.write(text)
     for func in re.split(r"\n\s*Function : ", text)[1:]:
-        if "knn2_scan" not in func.split("\n", 1)[0]:
+        if kernel not in func.split("\n", 1)[0]:
             continue
         blocks, cur = [], []
         for line in func.splitlines():
@@ -517,7 +529,7 @@ def sass_hot_blocks(lib_path):
         pairs = ops["FMUL"]
         return {"instructions": len(hot), "pairs": pairs,
                 "per_pair": len(hot) / pairs if pairs else None, "ops": dict(ops)}
-    raise AssertionError("cuobjdump -sass shows no knn2_scan")
+    raise AssertionError(f"cuobjdump -sass shows no {kernel}")
 
 
 def device_profile(fn, top=8):
@@ -566,8 +578,9 @@ def phase_build():
     log(f"[1] kernels built in {time.perf_counter() - t0:.2f} s: {sorted(logs) or 'cached'}")
     for name, text in logs.items():
         log(f"[1] nvcc {name}.cu:\n{text.strip()}")
-    log(f"[1] knn2_scan hot block (cuobjdump -sass): "
-        f"{json.dumps(sass_hot_blocks(_build._lib_path('knn2')))}")
+    for lib, kernel in (("knn2", "knn2_scan"), ("nn_argmin", "nn_scan")):
+        log(f"[1] {kernel} hot block (cuobjdump -sass): "
+            f"{json.dumps(sass_hot_blocks(_build._lib_path(lib), kernel))}")
     log(f"[1] native/libltm_native.so loaded: {native.available()}"
         + ("" if native.available() else " (host voxels: first point per voxel)"))
 
@@ -805,12 +818,16 @@ def compare_scatter(name, src, plan, timed=False):
               "differ": differ, "repeat_differ": repeat, "max_abs_err": err}
         if timed:
             idx = scatter_index(plan)
+            spare = got.shape[:-2] + (got.shape[-2] + 1, got.shape[-1])
+
+            def library():
+                return torch.zeros(spare, dtype=src.dtype, device=src.device).index_add_(
+                    -2, idx, src)
+
             st["ms"] = cuda_ms(lambda: fixed_order_sum(src, plan), reps=5)
             st["plain_ms"] = cuda_ms(lambda: fixed_order_sum_plain(src, plan), reps=1)
-            spare = got.shape[:-2] + (got.shape[-2] + 1, got.shape[-1])
-            st["library_ms"] = cuda_ms(
-                lambda: torch.zeros(spare, dtype=src.dtype, device=src.device)
-                .index_add_(-2, idx, src), reps=5)
+            st["library_ms"] = cuda_ms(library, reps=5)
+            st.update(scatter_device_times(lambda: fixed_order_sum(src, plan), library))
             size = src.element_size()
             nbytes = (src.numel() + got.numel()) * size + 4 * (plan.n_src + plan.rowptr.numel())
             rate = H100_FP32_FLOPS if src.dtype == torch.float32 else H100_FP64_FLOPS
@@ -820,6 +837,74 @@ def compare_scatter(name, src, plan, timed=False):
     finally:
         fixed_order_sum.launches = saved
     return st
+
+
+def graph_replay_ms(fn, calls=50, reps=5):
+    """Device ms a call of ``fn`` with no host in the way: ``calls`` calls
+    captured as one CUDA graph, its replay timed by CUDA events (median of
+    ``reps``), divided by ``calls`` (how the PCG's graph replays pay)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return cuda_ms(graph.replay, reps=reps) / calls
+
+
+def scatter_device_times(kernel, library, calls=200, profiled=50, turns=8):
+    """The scatter-sum against ``index_add_`` as the solver pays for them,
+    each side in ``turns`` turns (kernel, library, library, kernel, ...),
+    the card warm from the turns before: ms a call over ``calls`` calls
+    back to back on the host clock, ended by one sync (what the eager calls
+    pay: the larger of the wrapper's host work and the device time); ms a
+    call inside a CUDA graph (``graph_replay_ms``: what the PCG's replays
+    pay); and device ms a call from ``torch.profiler`` over ``profiled``
+    calls (the kernel's own time; the library's ``zeros`` fill and
+    ``index_add_``).  The profiler at times records some or none of such
+    short kernels (a turn of 0): its median is over the turns it recorded,
+    and ``graph_replay_ms`` is the device figure to read.  The median of
+    each side's turns, and every turn."""
+    import torch
+
+    def repeated(fn, n):
+        def run():
+            for _ in range(n):
+                fn()
+        return run
+
+    sides = {"": kernel, "library_": library}
+    keys = ("back_to_back_turns_ms", "graph_replay_turns_ms", "device_turns_ms")
+    out = {tag + key: [] for tag in sides for key in keys}
+    order = ["", "library_", "library_", ""] * (turns // 4)
+    for fn in sides.values():
+        repeated(fn, calls)()
+    for tag in order:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        repeated(sides[tag], calls)()
+        torch.cuda.synchronize()
+        out[tag + "back_to_back_turns_ms"].append((time.perf_counter() - t0) / calls * 1e3)
+    for tag in order:
+        out[tag + "graph_replay_turns_ms"].append(graph_replay_ms(sides[tag]))
+    for tag in order:
+        prof = device_profile(repeated(sides[tag], profiled))
+        out[tag + "device_turns_ms"].append(prof["device_busy_s"] * 1e3 / profiled)
+        out[tag + "device_kernels_ms"] = {k: v / profiled
+                                          for k, v in prof["top_device_ms"].items()}
+    for tag in sides:
+        out[tag + "back_to_back_ms"] = statistics.median(out[tag + "back_to_back_turns_ms"])
+        out[tag + "graph_replay_ms"] = statistics.median(out[tag + "graph_replay_turns_ms"])
+        recorded = [t for t in out[tag + "device_turns_ms"] if t > 0]
+        out[tag + "device_ms"] = statistics.median(recorded) if recorded else "not measured"
+    return out
 
 
 def scatter_recorder(calls):
@@ -845,7 +930,9 @@ def scatter_cases(dev):
     """Phase 2, the fixed-order scatter-sum: a pose graph's shape (1 026
     variables: two odometry chains, priors, two anchors each touched by 600
     anchored factors' ends, 8 % padding at variable 0), float32 and float64,
-    one lane and 12 lanes, each against its plain version bit for bit."""
+    one lane and 12 lanes, rows of 1, 6, 33, 36 and 70 elements (one warp
+    load of several rows, one of a row, passes of 32), each against its
+    plain version bit for bit."""
     import torch
 
     from ltm_torch.kernels.scatter import plan_scatter
@@ -859,9 +946,222 @@ def scatter_cases(dev):
     plan = plan_scatter(ends, V, dev)
     out = []
     for dtype in (torch.float32, torch.float64):
-        for shape in ((len(ends), 36), (len(ends), 6), (12, len(ends), 6)):
+        for shape in ((len(ends), 36), (len(ends), 6), (12, len(ends), 6), (len(ends), 1),
+                      (3, len(ends), 33), (len(ends), 70)):
             src = torch.from_numpy(rng.normal(size=shape)).to(dev, dtype)
             out.append(compare_scatter(f"graph_{len(shape) - 1}d_{shape[-1]}", src, plan))
+    return out
+
+
+# ---- K5b, the ICP 1-NN -------------------------------------------------------
+
+NEAR_TIE = 1e-5    # m², tests/test_torch_icp.py:59: both picks this close to each other
+
+
+def nn_counts():
+    from ltm_torch.kernels.nn_argmin import nn_argmin_select
+
+    return nn_argmin_select.launches, nn_argmin_select.merges
+
+
+def set_nn_counts(values=(0, 0)):
+    from ltm_torch.kernels.nn_argmin import nn_argmin_select
+
+    nn_argmin_select.launches, nn_argmin_select.merges = values
+
+
+def nn_diff(got, want, args):
+    """K5b's ``(d, index)`` against the plain version's on the same inputs:
+    (indices that differ, distances that differ where the indices agree,
+    the largest absolute difference of the distances).
+    Each differing index must be a near-tie: both picks valid targets whose
+    exact squared distances (float64, original coordinates) are within
+    ``NEAR_TIE`` of each other; anything else raises."""
+    import torch
+
+    (d, i), (d_w, i_w) = got, want
+    q, _, t, tm = args
+    apart = i != i_w
+    bits = int(((d != d_w) & ~apart).sum())
+    n_apart = int(apart.sum())
+    if n_apart:
+        lead = apart.nonzero(as_tuple=True)
+        rows = lead[:-1]
+        qd = q[lead].double()
+
+        def exact(idx):
+            pick = idx[lead]
+            return ((qd - t[rows + (pick,)].double()) ** 2).sum(-1), tm[rows + (pick,)]
+
+        (e, ok), (e_w, ok_w) = exact(i), exact(i_w)
+        bad = ~ok | ~ok_w | ((e - e_w).abs() > NEAR_TIE)
+        if bool(bad.any()):
+            k = int(bad.nonzero()[0, 0])
+            raise AssertionError(f"1-NN: {int(bad.sum())} of {n_apart} index differences are "
+                                 f"not near-ties (first: exact {float(e[k])} against "
+                                 f"{float(e_w[k])}, valid {bool(ok[k])}/{bool(ok_w[k])})")
+    err = float((d.double() - d_w.double()).abs().max()) if d.numel() else 0.0
+    return n_apart, bits, err
+
+
+def nn_lane_alone(args, kwargs, got, lanes):
+    """Each lane of ``lanes`` through the kernel in a batch of its own: the
+    bits of its row of ``got`` (the batch's result); entries that differ."""
+    from ltm_torch.kernels.knn import nn_sqdist_argmin
+
+    differ = 0
+    for b in lanes:
+        d, i = nn_sqdist_argmin(*(x[b:b + 1] for x in args), **kwargs)
+        differ += int((d[0] != got[0][b]).sum() + (i[0] != got[1][b]).sum())
+    return differ
+
+
+def compare_nn(name, args, kwargs=None, timed=False):
+    """``nn_sqdist_argmin`` through K5b on the card (twice: the same bits),
+    against ``nn_sqdist_argmin_plain`` on the same inputs (``nn_diff``),
+    and, with several lanes, the first, a middle and the last lane each
+    alone (``nn_lane_alone``: 0 entries apart).  With ``timed``: the
+    wrapper's ms (CUDA events, median of 5), its kernels' device time
+    (``device_profile``), the ms with the plan held at one split, the plain
+    version's ms (once), ``torch.cdist`` + ``min`` (4 lanes a call), and
+    the bound (8 FP32 flops a valid pair, or the bytes).  The launch counts
+    are restored."""
+    import torch
+
+    from ltm_torch.kernels import nn_argmin
+    from ltm_torch.kernels.knn import nn_sqdist_argmin, nn_sqdist_argmin_plain
+
+    kwargs = kwargs or {}
+    q, qm, t, tm = args
+    saved = nn_counts()
+    try:
+        got = nn_sqdist_argmin(*args, **kwargs)
+        again = nn_sqdist_argmin(*args, **kwargs)
+        want = nn_sqdist_argmin_plain(*args, **kwargs)
+        torch.cuda.synchronize()
+        repeat = int((got[0] != again[0]).sum() + (got[1] != again[1]).sum())
+        apart, bits, err = nn_diff(got, want, args)
+        lanes = q.shape[0] if q.dim() > 2 else 1
+        alone = (nn_lane_alone(args, kwargs, got, sorted({0, lanes // 2, lanes - 1}))
+                 if q.dim() > 2 and lanes > 1 else 0)
+        if repeat or bits or alone:
+            raise AssertionError(f"1-NN {name}: {repeat} entries apart between launches, {bits} "
+                                 f"distances apart where the indices agree, {alone} entries "
+                                 f"apart for a lane alone")
+        splits = nn_argmin._device_plan(q.device, lanes, q.shape[-2], t.shape[-2])[0]
+        st = {"case": name, "shape": [lanes, q.shape[-2], t.shape[-2]], "splits": splits,
+              "near_ties": apart, "differ_where_indices_agree": bits, "repeat_differ": repeat,
+              "lane_alone_differ": alone, "max_abs_err": err}
+        if timed:
+            st.update(nn_timing(args, kwargs))
+    finally:
+        set_nn_counts(saved)
+    return st
+
+
+def nn_timing(args, kwargs):
+    """The timing half of ``compare_nn`` (launch counts not restored)."""
+    import torch
+
+    from ltm_torch.kernels import nn_argmin
+    from ltm_torch.kernels.knn import nn_sqdist_argmin, nn_sqdist_argmin_plain
+
+    q, qm, t, tm = args
+    st = {"ms": cuda_ms(lambda: nn_sqdist_argmin(*args, **kwargs), reps=5)}
+    for tag, fn in (("", nn_sqdist_argmin), ("plain_", nn_sqdist_argmin_plain)):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        st[tag + "peak_above_inputs_bytes"] = torch.cuda.max_memory_allocated() - held
+    profiled = 5      # one call's records were at times missing from the profile
+
+    def calls():
+        for _ in range(profiled):
+            nn_sqdist_argmin(*args, **kwargs)
+    prof = device_profile(calls)
+    st["device_ms"] = {k: v / profiled for k, v in prof["top_device_ms"].items() if "nn_" in k}
+    plan = nn_argmin._plan
+    nn_argmin._plan = lambda *a: 1
+    try:
+        st["unsplit_ms"] = cuda_ms(lambda: nn_sqdist_argmin(*args, **kwargs), reps=3)
+    finally:
+        nn_argmin._plan = plan
+    st["plain_ms"] = cuda_ms(lambda: nn_sqdist_argmin_plain(*args, **kwargs), reps=1)
+    q3, t3 = (q, t) if q.dim() > 2 else (q[None], t[None])
+
+    def library():
+        for c in range(0, q3.shape[0], 4):
+            torch.cdist(q3[c:c + 4], t3[c:c + 4]).min(-1)
+    st["library_ms"] = cuda_ms(library, reps=3)
+    st["library"] = "torch.cdist + min, 4 lanes a call"
+    pairs = float((qm.sum(-1).double() * tm.sum(-1).double()).sum())
+    flops_ms = 8 * pairs / H100_FP32_FLOPS * 1e3
+    nbytes = q.numel() * 4 + qm.numel() + t.numel() * 4 + tm.numel() + qm.numel() * 12
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    st.update(valid_pairs=pairs, bound_ms=max(flops_ms, bytes_ms),
+              bound_by="operations" if flops_ms >= bytes_ms else "bytes")
+    return st
+
+
+def nn_cases(dev):
+    """Phase 2, K5b: ``nn_sqdist_argmin`` through its kernel against the
+    plain version on the card (``compare_nn``): masked lanes, a km offset,
+    duplicated targets (the lowest index must win), a lane without a valid
+    target (index 0, 1e30), no valid query, the nearest target duplicated
+    across a target-split boundary, ragged sizes, one lane without a lane
+    axis, and the ICP farm's largest shape (32 lanes x 4 096 x 32 768),
+    timed."""
+    import torch
+
+    from ltm_torch.kernels import nn_argmin
+    from ltm_torch.kernels.knn import nn_sqdist_argmin
+
+    rng = np.random.default_rng(23)
+
+    def on_card(*arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+
+    def cloud(lanes, n, m, offset=0.0, extent=20.0):
+        t = (rng.uniform(-extent, extent, (lanes, m, 3)) + offset).astype(np.float32)
+        q = (t[:, rng.integers(0, m, n)] + rng.normal(scale=0.05, size=(lanes, n, 3)))
+        return q.astype(np.float32), rng.uniform(size=(lanes, n)) > 0.1, t, \
+            rng.uniform(size=(lanes, m)) > 0.2
+
+    cases = [("masked", cloud(3, 1800, 3000)), ("km_offset", cloud(3, 1800, 3000, 1000.0))]
+    q, qm, t, tm = cloud(4, 700, 2000)
+    t[:, 1::2] = t[:, 0::2]                      # every target twice: the first must win
+    cases.append(("duplicates", (q, qm, t, np.ones_like(tm))))
+    q, qm, t, tm = cloud(3, 500, 1500)
+    tm[1] = False
+    cases.append(("lane_without_target", (q, qm, t, tm)))
+    cases.append(("no_valid_query", (q, np.zeros_like(qm), t, np.ones_like(tm))))
+    q, qm, t, tm = cloud(2, 64, 200_000)
+    tm[:] = True
+    _, chunk = nn_argmin._device_plan(dev, 2, 64, 200_000)
+    t[:, [chunk - 1, chunk]] = q[:, :1]          # the nearest at both sides of a split boundary
+    cases.append(("split_boundary", (q, qm, t, tm)))
+    cases.append(("ragged", cloud(5, 3 * nn_argmin._R * nn_argmin._THREADS + 17, 4096 + 3)))
+    q, qm, t, tm = cloud(1, 2000, 5000)
+    cases.append(("no_lane_axis", (q[0], qm[0], t[0], tm[0])))
+    cases.append(("farm_largest", cloud(32, 4096, 32768, 50.0, 60.0)))
+    out = []
+    for name, arrays in cases:
+        args = on_card(*arrays)
+        st = compare_nn(name, args, {"tile": 4096}, timed=name == "farm_largest")
+        got_d, got_i = (x.cpu().numpy() for x in nn_sqdist_argmin(*args, tile=4096))
+        if name == "duplicates" and (np.any(got_i % 2) or st["near_ties"]):
+            raise AssertionError("duplicated targets: the lowest index must win")
+        if name == "lane_without_target" and (np.any(got_i[1] != 0) or np.any(got_d[1] != 1e30)):
+            raise AssertionError("a lane without a valid target: index 0 and 1e30")
+        if name == "no_valid_query" and not np.all(got_d == np.float32(1e30)):
+            raise AssertionError("invalid queries: 1e30")
+        if name == "split_boundary" and not np.all(got_i[:, 0] == chunk - 1):
+            raise AssertionError("a nearest target on both sides of a split: the first must win")
+        log(f"[2] nn_sqdist_argmin {json.dumps(st)}")
+        out.append(st)
+    set_nn_counts()
     return out
 
 
@@ -1894,7 +2194,9 @@ class HotLoops:
             if self.timed:                   # the bound reads the masks' counts: a host sync
                 self.bound_s[name] += hot_loop_bound_s(name, args)
             if name == "icp_1nn" and (self.largest_1nn is None
-                                      or args[0].shape[0] > self.largest_1nn[0][0].shape[0]):
+                                      or args[0].numel() * args[2].shape[-2]
+                                      > self.largest_1nn[0][0].numel()
+                                      * self.largest_1nn[0][2].shape[-2]):
                 self.largest_1nn = (args, kwargs)
             if not self.timed or torch.cuda.is_current_stream_capturing():
                 return fn(*args, **kwargs)       # a captured call runs in the graph's replays
@@ -1940,29 +2242,55 @@ def hot_loop_bound_s(name, args) -> float:
     return max(ops / H100_FP32_FLOPS, nbytes / H100_BYTES_PER_S)
 
 
-def nn_bound_and_library(args, kwargs):
-    """The largest 1-NN call of the farm: its time by CUDA events, its bound
-    (8 FP32 flops a valid pair at the card's peak, or its bytes) and the
-    time of ``torch.cdist`` + ``min`` on the same inputs (in 4-lane chunks)."""
-    import torch
+class NnFarmCheck:
+    """Holds every call of the ICP 1-NN in a run (``register.icp``'s
+    ``nn_sqdist_argmin``, through K5b) to ``nn_sqdist_argmin_plain`` on the
+    same inputs as it happens (``nn_diff``: indices equal except at counted
+    near-ties, distances bit-equal where they agree), and the first and
+    last lane of each call alone to the same lane in its batch
+    (``nn_lane_alone``).  The comparison launches leave the counts as they
+    were."""
 
-    from ltm_torch.kernels.knn import nn_sqdist_argmin
+    def __init__(self):
+        import importlib
 
-    q, qm, t, tm = args
-    ms = cuda_ms(lambda: nn_sqdist_argmin(*args, **kwargs), reps=3)
-    pairs = float((qm.sum(-1).double() * tm.sum(-1).double()).sum())
-    flops_ms = 8 * pairs / H100_FP32_FLOPS * 1e3
-    nbytes = q.numel() * 4 + qm.numel() + t.numel() * 4 + tm.numel() + qm.numel() * 12
-    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+        self.mod = importlib.import_module("ltm_torch.register.icp")
+        self.fn = self.mod.nn_sqdist_argmin
+        self.stats = {"calls": 0, "lanes_checked_alone": 0, "near_ties": 0,
+                      "max_near_ties_a_call": 0, "differ_where_indices_agree": 0,
+                      "lane_alone_differ": 0, "queries_compared": 0, "max_abs_err": 0.0,
+                      "shapes": {}}
+        self.mod.nn_sqdist_argmin = self._checked
 
-    def library():
-        for c in range(0, q.shape[0], 4):
-            torch.cdist(q[c:c + 4], t[c:c + 4]).min(-1)
-    lib_ms = cuda_ms(library, reps=3)
-    return {"lanes": q.shape[0], "queries": q.shape[1], "targets": t.shape[1],
-            "valid_pairs": pairs, "ms": ms, "bound_ms": max(flops_ms, bytes_ms),
-            "bound_by": "operations" if flops_ms >= bytes_ms else "bytes",
-            "library_ms": lib_ms, "library": "torch.cdist + min, 4 lanes a call"}
+    def _checked(self, *args, **kwargs):
+        from ltm_torch.kernels.knn import nn_sqdist_argmin_plain
+
+        got = self.fn(*args, **kwargs)
+        saved = nn_counts()
+        try:
+            apart, bits, err = nn_diff(got, nn_sqdist_argmin_plain(*args, **kwargs), args)
+            lanes = sorted({0, args[0].shape[0] - 1})
+            alone = nn_lane_alone(args, kwargs, got, lanes)
+        finally:
+            set_nn_counts(saved)
+        st = self.stats
+        st["calls"] += 1
+        st["lanes_checked_alone"] += len(lanes)
+        st["near_ties"] += apart
+        st["max_near_ties_a_call"] = max(st["max_near_ties_a_call"], apart)
+        st["differ_where_indices_agree"] += bits
+        st["lane_alone_differ"] += alone
+        st["max_abs_err"] = max(st["max_abs_err"], err)
+        st["queries_compared"] += args[0].numel() // 3
+        shape = "x".join(map(str, (args[0].shape[0], args[0].shape[-2], args[2].shape[-2])))
+        st["shapes"][shape] = st["shapes"].get(shape, 0) + 1
+        if bits or alone:
+            raise AssertionError(f"ICP 1-NN call {st['calls']}: {bits} distances apart where the "
+                                 f"indices agree, {alone} entries apart for a lane alone")
+        return got
+
+    def restore(self):
+        self.mod.nn_sqdist_argmin = self.fn
 
 
 def slam_run(cfg, b, hot=None, mesh=None):
@@ -2019,21 +2347,34 @@ def phase_slam_full_width():
 
     runs = []
     scatter_calls = {}
-    for i in range(2):                          # run 0 warms up, recording the scatter-sums
+    for i in range(2):   # run 0 warms up, recording the scatter-sums and checking each 1-NN call
         if i == 1:
             torch.cuda.reset_peak_memory_stats()
         fixed_order_sum.launches = 0
+        set_nn_counts()
+        farm = NnFarmCheck() if i == 0 else None
         hot = HotLoops()
         solver.fixed_order_sum = scatter_recorder(scatter_calls) if i == 0 else fixed_order_sum
         try:
             slam, res, st = slam_run(LTSlamConfig(), bundle, hot)
         finally:
             hot.restore()
+            if farm is not None:
+                farm.restore()
             solver.fixed_order_sum = fixed_order_sum
         st["run"] = i
         st["scatter_launches"] = fixed_order_sum.launches
+        st["nn_launches"], st["nn_merges"] = nn_counts()
         if fixed_order_sum.launches <= 0:
             raise AssertionError("LT-SLAM launched no fixed-order scatter-sum")
+        if st["nn_launches"] != st["hot_loop_calls"]["icp_1nn"]:
+            raise AssertionError(f"ICP 1-NN: {st['hot_loop_calls']['icp_1nn']} calls, "
+                                 f"{st['nn_launches']} K5b launches")
+        if farm is not None:
+            st["nn_farm_check"] = farm.stats
+            if farm.stats["calls"] != st["nn_launches"] or not farm.stats["calls"]:
+                raise AssertionError(f"the farm check saw {farm.stats['calls']} of "
+                                     f"{st['nn_launches']} 1-NN calls")
         runs.append(st)
         log(f"[8] {json.dumps(st)}")
         if st["ate_rmse_m"] > ATE_BOUND:
@@ -2053,7 +2394,7 @@ def phase_slam_full_width():
                     "ms_per_call": hot.seconds[name] / hot.calls[name] * 1e3 if hot.calls[name] else None,
                     "bound_ms_per_call": hot.bound_s[name] / hot.calls[name] * 1e3 if hot.calls[name] else None}
              for name in hot.calls}
-    nn = nn_bound_and_library(*hot.largest_1nn)
+    nn = compare_nn("phase8_largest", *hot.largest_1nn, timed=True)
     log(f"[8] instrumented run (a sync around each hot-loop call outside the PCG's graph "
         f"replays): wall {inst['wall_s']:.3f} s, optimize {optimize_s:.3f} s, {json.dumps(loops)}")
     log(f"[8] largest 1-NN call: {json.dumps(nn)}")
@@ -2078,6 +2419,9 @@ def phase_slam_full_width():
     timed = runs[1:]
     summary = {
         "scatter_launches_per_run": [r["scatter_launches"] for r in timed],
+        "nn_launches_per_run": [r["nn_launches"] for r in timed],
+        "nn_merges_per_run": [r["nn_merges"] for r in timed],
+        "nn_farm_check": runs[0]["nn_farm_check"],
         "scatter_largest_calls": scatter,
         "keyframes": n_kf,
         "median_keyframes_per_s": statistics.median(r["keyframes_per_s"] for r in timed),
@@ -3746,6 +4090,7 @@ def main() -> int:
     km = phase_kernel_cases(dev)
     km4 = phase_chunk_cases(dev)
     sweep_cases = phase_sweep_cases(dev)
+    nn_phase2 = nn_cases(dev)
 
     cfg = RemovertConfig()
     cfg.downsample_voxel_size = 0.1
@@ -3772,7 +4117,7 @@ def main() -> int:
                 "k_blocks", "chunks_culled", "block_tests_per_chunk", "max_block_tests",
                 "work_items", "merge_launches", "kernel_ms", "prep_ms", "scan_ms",
                 "scan_ms_by_seg", "merge_ms", "plain_ms", "bound_ms", "bound_by", "gather_ms",
-                "k1_yardstick_ms")
+                "k1_yardstick_ms", "library_ms")
     kernels = [{
         "name": "knn2_sqdists",
         "route": "cuda",
@@ -3823,7 +4168,8 @@ def main() -> int:
         "plain_ms": k4_nd["plain_ms"],
         "bound_ms": k4_nd["bound_ms"],
         "bound_by": k4_nd["bound_by"],
-        "library_ms": None,
+        "library_ms": k4_nd["library_ms"],
+        "library": "torch.cdist + topk over the valid points, 1 024 queries a call (unclamped)",
         "k1_yardstick_ms": k4_nd["k1_yardstick_ms"],
         "per_launch": [{k: st.get(k) for k in per_call} for st in k4_calls],
         "scan_ms": k4_nd["scan_ms"],
@@ -3832,6 +4178,7 @@ def main() -> int:
         "km_offset_scan_ms_by_seg": km4["scan_ms_by_seg"],
         "km_offset_bound_ms": km4["bound_ms"],
         "km_offset_k1_yardstick_ms": km4["k1_yardstick_ms"],
+        "km_offset_library_ms": km4["library_ms"],
     }]
     from ltm_torch.kernels import sweep
 
@@ -3910,8 +4257,9 @@ def main() -> int:
     kernels.append({
         "name": "fixed_order_sum (the solver's scatter-sums)",
         "route": "cuda",
-        "route_kernels": ["fixed_order_sum<float|double> (a thread an output element, its "
-                          "row's contributions summed in list order)"],
+        "route_kernels": ["fixed_order_sum<float|double> (a warp a (lane, row), rows by "
+                          "degree, highest first; the row's list read once and shuffled, "
+                          "contribution rows loaded side by side, added in list order)"],
         "source": "ltm_torch/csrc/scatter.cu",
         "replaces": "ltm/graph/solver.py:157",
         "also_replaces": ["ltm/graph/solver.py:255"],
@@ -3923,10 +4271,48 @@ def main() -> int:
         "ms": main8["ms"], "plain_ms": main8["plain_ms"], "bound_ms": main8["bound_ms"],
         "bound_by": main8["bound_by"], "library_ms": main8["library_ms"],
         "library": "index_add_ (atomic: not a fixed order)",
+        "device_ms": main8["device_ms"], "library_device_ms": main8["library_device_ms"],
+        "graph_replay_ms": main8["graph_replay_ms"],
+        "library_graph_replay_ms": main8["library_graph_replay_ms"],
         "per_call": [{k: st[k] for k in ("case", "src", "max_degree", "ms", "plain_ms",
-                                         "bound_ms", "bound_by", "library_ms")}
+                                         "bound_ms", "bound_by", "library_ms", "device_ms",
+                                         "library_device_ms", "graph_replay_ms",
+                                         "library_graph_replay_ms", "back_to_back_ms",
+                                         "library_back_to_back_ms")}
                      for st in slam["full_width"]["scatter_largest_calls"]],
         "cases": len(sweep_cases["scatter"]),
+    })
+    fw = slam["full_width"]
+    nn8 = fw["largest_1nn_call"]
+    kernels.append({
+        "name": "nn_sqdist_argmin (K5b, the ICP 1-NN)",
+        "route": "cuda",
+        "route_kernels": ["nn_pack (a lane's targets as float4 (x, y, z, |t|^2))",
+                          "nn_scan (lane x query block x target split; a running (d, index) "
+                          "a query)",
+                          "nn_merge (the splits' partial (d, index), in order)"],
+        "source": "ltm_torch/csrc/nn_argmin.cu",
+        "replaces": "ltm/kernels/knn.py:177",
+        "launches": fw["nn_launches_per_run"][-1],
+        "merge_launches": fw["nn_merges_per_run"][-1],
+        "launches_path": "phase 8 (LTSlam.run, LTSlamConfig()): every ICP iteration and "
+                         "fitness of the farm",
+        "max_abs_err": max([fw["nn_farm_check"]["max_abs_err"], nn8["max_abs_err"]]
+                           + [st["max_abs_err"] for st in nn_phase2]),
+        "max_abs_err_is": "distances, kernel route against the plain version: 0 where the "
+                          "indices agree, the near-ties' gap elsewhere",
+        "near_ties_phase8_warmup": fw["nn_farm_check"]["near_ties"],
+        "calls_checked_phase8_warmup": fw["nn_farm_check"]["calls"],
+        "ms": nn8["ms"], "device_ms": nn8["device_ms"], "unsplit_ms": nn8["unsplit_ms"],
+        "plain_ms": nn8["plain_ms"], "bound_ms": nn8["bound_ms"], "bound_by": nn8["bound_by"],
+        "library_ms": nn8["library_ms"], "library": nn8["library"],
+        "call": nn8["shape"], "splits": nn8["splits"],
+        "peak_above_inputs_bytes": nn8["peak_above_inputs_bytes"],
+        "plain_peak_above_inputs_bytes": nn8["plain_peak_above_inputs_bytes"],
+        "phase2_farm_shape": next({k: st.get(k) for k in ("ms", "plain_ms", "bound_ms",
+                                                          "library_ms", "device_ms")}
+                                  for st in nn_phase2 if st["case"] == "farm_largest"),
+        "cases": len(nn_phase2),
     })
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -6,6 +6,9 @@ compares the *average of squared L2 distances* against a threshold
 :func:`knn_avg_sqdist` goes through ``knn2_sqdists``: the hand-written CUDA
 kernel for CUDA tensors, its plain version for CPU tensors.  Other k take
 :func:`knn_sqdists`, the tiled matmul selection with an exact re-score.
+ICP's 1-NN, :func:`nn_sqdist_argmin`, selects in the hand-written CUDA
+kernel K5b (``kernels/nn_argmin.py``) for CUDA tensors and in its plain
+version, :func:`nn_sqdist_argmin_plain`, for CPU tensors.
 """
 
 from __future__ import annotations
@@ -13,9 +16,11 @@ from __future__ import annotations
 import torch
 
 from ltm_torch.kernels.knn2 import knn2_sqdists
+from ltm_torch.kernels.nn_argmin import nn_argmin_select
 from ltm_torch.kernels.projection import sumsq3
 
-__all__ = ["knn_sqdists", "knn_avg_sqdist", "chunked_knn_avg_sqdist", "nn_sqdist_argmin"]
+__all__ = ["knn_sqdists", "knn_avg_sqdist", "chunked_knn_avg_sqdist", "nn_sqdist_argmin",
+           "nn_sqdist_argmin_plain"]
 
 _BIG = 1e30
 
@@ -98,29 +103,61 @@ def chunked_knn_avg_sqdist(query_xyz, query_mask, target_xyz, target_mask,
     ])
 
 
+def _nn_centred(query_xyz, target_xyz, target_mask):
+    """The selection's inputs: both point sets centred on the target
+    bounding box, the queries' and the targets' squared norms (1e30 at an
+    invalid target)."""
+    mid = _bbox_mid(target_xyz, target_mask)[..., None, :]
+    q_c = query_xyz - mid
+    t_c = target_xyz - mid
+    q2 = torch.sum(q_c * q_c, -1)
+    # an invalid target's |t|² is 1e30, so its distance is exactly 1e30 (the
+    # query terms vanish below its ulp): ltm's where(mask, d2, 1e30) without a pass
+    t2 = torch.where(target_mask, torch.sum(t_c * t_c, -1), _BIG)
+    return q_c, q2, t_c, t2
+
+
+def _nn_rescore(query_xyz, query_mask, target_xyz, best_d, best_i):
+    """The picked pair re-scored exactly as ``(q − t)²`` on the original
+    coordinates; 1e30 where nothing was picked and at invalid queries."""
+    m = target_xyz.shape[-2]
+    sel = torch.gather(target_xyz, -2, torch.clamp(best_i, max=m - 1)[..., None].expand(query_xyz.shape))
+    diff = query_xyz - sel
+    d_exact = torch.sum(diff * diff, -1)
+    best_d = torch.where(best_d < _BIG, d_exact, _BIG)
+    return torch.where(query_mask, best_d, _BIG), best_i
+
+
 def nn_sqdist_argmin(query_xyz, query_mask, target_xyz, target_mask, tile: int = 8192):
     """Nearest valid target: ``(sq_dist (..., N), index (..., N))``, the ICP
     correspondence search.  Leading dimensions are ICP lanes (``ltm`` maps
     one lane with ``vmap``).
 
-    Selection runs on bbox-centred matmul distances ``|q|² + |t|² − 2q·t``
-    over target tiles with a running (min, argmin) — the first index wins
-    among equal minima, within a tile (``min``) and across tiles (strict
-    ``<``) — then the picked pair is re-scored exactly as ``(q − t)²`` on
-    the original coordinates.  The ``(lanes, N, tile)`` distance block is
-    the memory peak of the ICP farm: two such blocks are live at a time.
-    Invalid queries get 1e30."""
+    Selection on bbox-centred matmul distances ``|q|² + |t|² − 2q·t``; the
+    first index wins among equal minima; the pick is then re-scored exactly
+    as ``(q − t)²`` on the original coordinates.  Invalid queries get 1e30.
+    CPU tensors take :func:`nn_sqdist_argmin_plain`; CUDA tensors launch the
+    hand-written kernel (``kernels/nn_argmin.py``, K5b; ``tile`` does not
+    change its result, and it holds no distance block) between the plain
+    version's own centring and re-score, and raise on any other device."""
+    if query_xyz.device.type == "cpu":
+        return nn_sqdist_argmin_plain(query_xyz, query_mask, target_xyz, target_mask, tile=tile)
+    best_d, best_i = nn_argmin_select(*_nn_centred(query_xyz, target_xyz, target_mask))
+    return _nn_rescore(query_xyz, query_mask, target_xyz, best_d, best_i)
+
+
+def nn_sqdist_argmin_plain(query_xyz, query_mask, target_xyz, target_mask, tile: int = 8192):
+    """The plain version of :func:`nn_sqdist_argmin`, on any device.
+
+    Selection runs over target tiles with a running (min, argmin) — the
+    first index wins among equal minima, within a tile (``min``) and across
+    tiles (strict ``<``).  The ``(lanes, N, tile)`` distance block is its
+    memory peak: two such blocks are live at a time."""
     n, m = query_xyz.shape[-2], target_xyz.shape[-2]
     dev = query_xyz.device
-    mid = _bbox_mid(target_xyz, target_mask)[..., None, :]
-    q_c = query_xyz - mid
-    t_c = target_xyz - mid
-    q2 = torch.sum(q_c * q_c, -1)
+    q_c, q2, t_c, t2 = _nn_centred(query_xyz, target_xyz, target_mask)
     best_d = torch.full(query_xyz.shape[:-1], _BIG, dtype=torch.float32, device=dev)
     best_i = torch.zeros(query_xyz.shape[:-1], dtype=torch.long, device=dev)
-    # an invalid target's |t|² is 1e30, so its distance is exactly 1e30 (the
-    # query terms vanish below its ulp): ltm's where(mask, d2, 1e30) without a pass
-    t2 = torch.where(target_mask, torch.sum(t_c * t_c, -1), _BIG)
     # on the CPU the distance block is cut to query chunks that stay in
     # cache (the per-element arithmetic is the same); the card takes it whole
     q_chunk = n if query_xyz.is_cuda else 256
@@ -141,8 +178,4 @@ def nn_sqdist_argmin(query_xyz, query_mask, target_xyz, target_mask, tile: int =
             take = tile_min < cur_d
             best_d[..., i0:i0 + q_chunk] = torch.where(take, tile_min, cur_d)
             best_i[..., i0:i0 + q_chunk] = torch.where(take, tile_arg + j0, cur_i)
-    sel = torch.gather(target_xyz, -2, torch.clamp(best_i, max=m - 1)[..., None].expand(query_xyz.shape))
-    diff = query_xyz - sel
-    d_exact = torch.sum(diff * diff, -1)
-    best_d = torch.where(best_d < _BIG, d_exact, _BIG)
-    return torch.where(query_mask, best_d, _BIG), best_i
+    return _nn_rescore(query_xyz, query_mask, target_xyz, best_d, best_i)

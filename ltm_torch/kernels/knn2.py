@@ -92,19 +92,16 @@ _THREADS, _TILE, _R = 128, 512, 8
 _WAVES = 2                   # CTA waves the grid should reach before targets split
 
 
-def _plan(n_valid: int, m_valid: int, sms: int = 132, ctas_per_sm: int = 4) -> int:
-    """Target splits for ``n_valid`` valid queries against ``m_valid``
-    valid targets (both > 0) on ``sms`` SMs that each hold ``ctas_per_sm``
-    CTAs of the scan kernel.
+def split_count(q_ctas: int, tiles: int, wave: int) -> int:
+    """Target splits for a grid of ``q_ctas`` query CTAs scanning ``tiles``
+    target tiles on a card that holds ``wave`` CTAs at once (both kernels'
+    rule, K1's and K5b's).
 
-    One CTA takes ``_R * _THREADS`` queries.  When those CTAs make fewer than
-    ``_WAVES`` waves, the targets are cut into ``splits`` contiguous chunks
-    of whole tiles (each CTA scans one chunk and a merge kernel folds the
-    partial top-2s): the count in ``[s_min, 2 s_min]`` whose last wave is
-    the fullest, the smallest on ties, rounded so that no chunk is empty."""
-    q_ctas = -(-n_valid // (_R * _THREADS))
-    wave = sms * ctas_per_sm
-    tiles = -(-m_valid // _TILE)
+    When the query CTAs make fewer than ``_WAVES`` waves, the targets are
+    cut into ``splits`` contiguous chunks of whole tiles (each CTA scans one
+    chunk and a merge kernel folds the partial results): the count in
+    ``[s_min, 2 s_min]`` whose last wave is the fullest, the smallest on
+    ties, rounded so that no chunk is empty."""
     if q_ctas >= _WAVES * wave or tiles == 1:
         return 1
 
@@ -117,6 +114,14 @@ def _plan(n_valid: int, m_valid: int, sms: int = 132, ctas_per_sm: int = 4) -> i
 
     s_min = -(-_WAVES * wave // q_ctas)
     return max(sorted({no_empty(s) for s in range(s_min, 2 * s_min + 1)}), key=last_wave_fill)
+
+
+def _plan(n_valid: int, m_valid: int, sms: int = 132, ctas_per_sm: int = 4) -> int:
+    """Target splits for ``n_valid`` valid queries against ``m_valid``
+    valid targets (both > 0) on ``sms`` SMs that each hold ``ctas_per_sm``
+    CTAs of the scan kernel: :func:`split_count` on CTAs of ``_R *
+    _THREADS`` queries and tiles of ``_TILE`` targets."""
+    return split_count(-(-n_valid // (_R * _THREADS)), -(-m_valid // _TILE), sms * ctas_per_sm)
 
 
 def _split_len(m_valid: int, splits: int, tile: int = _TILE) -> int:

@@ -8,17 +8,18 @@ array: for each output row, the positions of its contributions, in the
 order of the index array (a stable sort).  :func:`fixed_order_sum` adds
 them in that order, starting from +0.0 — the order of ``index_add_`` on the
 CPU, so it gives ``index_add_``'s CPU bits on every device.  CUDA tensors
-launch the hand-written kernel ``ltm_torch/csrc/scatter.cu`` (one thread an
-output element, a sequential sum); CPU tensors take the plain version,
-:func:`fixed_order_sum_plain` (the plan's padded table, one column of
-elementwise adds at a time).  The module builds and imports nothing when it
-is imported.
+launch the hand-written kernel ``ltm_torch/csrc/scatter.cu`` (a warp an
+output row, the rows in the plan's order, highest degree first); CPU
+tensors take the plain version, :func:`fixed_order_sum_plain` (the plan's
+padded table, one column of elementwise adds at a time).  The module builds
+and imports nothing when it is imported.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -30,12 +31,15 @@ __all__ = ["ScatterPlan", "plan_scatter", "fixed_order_sum", "fixed_order_sum_pl
 class ScatterPlan(NamedTuple):
     """Where each of ``n_rows`` output rows takes its contributions from,
     in order: ``rowptr`` (n_rows + 1,) and ``cols`` (entries listed,) int32,
-    the CSR form (the kernel's), and ``table`` (n_rows, max_degree) int64,
-    the same lists padded with ``n_src`` (a zero row; the plain version's);
-    ``n_src``, the rows of the contributions."""
+    the CSR form, and ``order`` (n_rows,) int32, the rows by degree,
+    highest first (ties by row), the order the kernel starts them in (its
+    layout); ``table`` (n_rows, max_degree) int64, the same lists padded
+    with ``n_src`` (a zero row; the plain version's); ``n_src``, the rows of
+    the contributions."""
 
     rowptr: torch.Tensor
     cols: torch.Tensor
+    order: torch.Tensor
     table: torch.Tensor
     n_src: int
 
@@ -59,9 +63,10 @@ def plan_scatter(index: np.ndarray, n_rows: int, device, keep=None) -> ScatterPl
     rows = index[order]
     table = np.full((n_rows, int(counts.max(initial=0))), n_src, np.int64)
     table[rows, np.arange(order.shape[0]) - rowptr[rows]] = order
+    by_degree = np.argsort(-counts, kind="stable")
     dev = torch.device(device)
-    return ScatterPlan(torch.from_numpy(rowptr.astype(np.int32)).to(dev),
-                       torch.from_numpy(order.astype(np.int32)).to(dev),
+    return ScatterPlan(*(torch.from_numpy(a.astype(np.int32)).to(dev)
+                         for a in (rowptr, order, by_degree)),
                        torch.from_numpy(table).to(dev), n_src)
 
 
@@ -91,23 +96,24 @@ def fixed_order_sum(src: torch.Tensor, plan: ScatterPlan) -> torch.Tensor:
     """(..., n_rows, width): each row the sum, in the plan's order from
     +0.0, of the rows of ``src`` (..., n_src, width) listed for it.  CUDA
     tensors launch the kernel (``fixed_order_sum.launches``); CPU tensors
-    take :func:`fixed_order_sum_plain`."""
-    _check(src, plan)
+    take :func:`fixed_order_sum_plain`.  The kernel route is called once a
+    PCG iteration outside its CUDA graph and ~100 times a solve eagerly, so
+    its host work is kept to the checks, the output and one C call."""
     if src.device.type == "cpu":
         return fixed_order_sum_plain(src, plan)
+    _check(src, plan)
     if src.device.type != "cuda":
         raise ValueError(f"fixed_order_sum runs on cuda or cpu, not {src.device}")
-    lead = src.shape[:-2]
     width = src.shape[-1]
-    n_rows = plan.rowptr.shape[0] - 1
-    flat = src.contiguous()
-    out = torch.empty(lead + (n_rows, width), dtype=src.dtype, device=src.device)
-    n_lanes = int(np.prod(lead)) if lead else 1
-    with torch.cuda.device(src.device):
-        rc = _lib().ltm_fixed_order_sum(flat.data_ptr(), plan.rowptr.data_ptr(),
-                                        plan.cols.data_ptr(), out.data_ptr(),
-                                        int(src.dtype == torch.float64), n_lanes, plan.n_src,
-                                        n_rows, width, torch.cuda.current_stream().cuda_stream)
+    n_rows = plan.order.shape[0]
+    out = src.new_empty(src.shape[:-2] + (n_rows, width))
+    src = src.contiguous()
+    dev = src.device.index
+    rc = _lib().ltm_fixed_order_sum(src.data_ptr(), plan.rowptr.data_ptr(), plan.cols.data_ptr(),
+                                    plan.order.data_ptr(), out.data_ptr(),
+                                    int(src.dtype == torch.float64), math.prod(src.shape[:-2]),
+                                    plan.n_src, n_rows, width, dev,
+                                    torch._C._cuda_getCurrentRawStream(dev))
     if rc != 0:
         raise RuntimeError(f"fixed_order_sum launch failed: "
                            f"{_lib().ltm_scatter_error_string(rc).decode()} ({rc})")
@@ -124,7 +130,7 @@ def _lib() -> ctypes.CDLL:
 
     lib = load_kernel("scatter")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ltm_fixed_order_sum.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    lib.ltm_fixed_order_sum.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
     lib.ltm_fixed_order_sum.restype = i
     lib.ltm_scatter_error_string.argtypes = [i]
     lib.ltm_scatter_error_string.restype = ctypes.c_char_p

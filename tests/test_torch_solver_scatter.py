@@ -9,7 +9,13 @@ on the CPU.
     functions give with their sums taken by ``index_add_`` (the solver's
     ``_precond_sums``, ``_grad_from_jacobians`` and
     ``_hvp_from_jacobians`` written with ``index_add_``, below);
-  * the plan's layout and its checks.
+  * the plan's layout (CSR lists, the rows by degree, the padded table)
+    and its checks;
+  * the kernel's schedule written out in Python (``_kernel_schedule_sum``:
+    a warp a row in the plan's order, the row's list 32 entries at a time,
+    ``32 // width`` contribution rows a load or passes of 32 elements,
+    ``_STEPS`` loads before their adds) equals ``index_add_`` bit for bit
+    at rows of 1 to 70 elements.
 
 The kernel needs the card: ``chip_smoke.py`` holds it to the plain version
 there, and holds a solve on the card to itself.
@@ -196,6 +202,8 @@ def test_plan_layout():
     plan = plan_scatter(np.array([2, 0, 2, 2, 1, 0]), 4, "cpu")
     assert plan.rowptr.tolist() == [0, 2, 3, 6, 6]
     assert plan.cols.tolist() == [1, 5, 4, 0, 2, 3]
+    assert plan.order.tolist() == [2, 0, 1, 3]          # by degree, highest first; ties by row
+    assert plan.order.dtype == torch.int32
     assert plan.table.tolist() == [[1, 5, 6], [4, 6, 6], [0, 2, 3], [6, 6, 6]]
     assert plan.n_src == 6
     kept = plan_scatter(np.array([2, 0, 2, 2, 1, 0]), 4, "cpu",
@@ -203,10 +211,11 @@ def test_plan_layout():
     assert kept.rowptr.tolist() == [0, 1, 2, 4, 4]
     assert kept.cols.tolist() == [5, 4, 0, 2]
     assert kept.table.tolist() == [[5, 6], [4, 6], [0, 2], [6, 6]]
+    assert kept.order.tolist() == [2, 0, 1, 3]
     src = torch.arange(12.0).reshape(6, 2)
     assert fixed_order_sum(src, kept).tolist() == [[10, 11], [8, 9], [4, 6], [0, 0]]
     empty = plan_scatter(np.zeros(0, np.int64), 3, "cpu")
-    assert empty.table.shape == (3, 0)
+    assert empty.table.shape == (3, 0) and empty.order.tolist() == [0, 1, 2]
     assert torch.equal(fixed_order_sum(torch.ones(2, 0, 4), empty), torch.zeros(2, 3, 4))
 
 
@@ -220,3 +229,61 @@ def test_plan_and_sum_checks():
         fixed_order_sum(torch.ones(2, 4, dtype=torch.int32), plan)
     with pytest.raises(ValueError):
         fixed_order_sum(torch.ones(2, 4, device="meta"), plan)
+
+
+# ---- the kernel's schedule -------------------------------------------------------------
+
+_STEPS = 8      # kSteps of csrc/scatter.cu: contribution loads in flight a thread
+
+
+def _kernel_schedule_sum(src, plan):
+    """``csrc/scatter.cu``'s schedule in Python: a warp a (lane, row), rows
+    in ``plan.order``; the row's list read 32 entries at a time; a row of
+    ``width`` ≤ 32 elements loaded ``32 // width`` contribution rows a warp
+    load, a wider one in passes of 32 elements; ``_STEPS`` loads issued, then
+    their adds in list order, each element from +0.0."""
+    width = src.shape[-1]
+    lanes = src.reshape((-1, plan.n_src, width))
+    rowptr, cols = plan.rowptr.tolist(), plan.cols.tolist()
+    out = torch.full((lanes.shape[0], len(rowptr) - 1, width), torch.nan, dtype=src.dtype)
+    narrow = width <= 32
+    per = 32 // width if narrow else 1
+    passes = 1 if narrow else -(-width // 32)
+    for v in plan.order.tolist():
+        j0, j1 = rowptr[v], rowptr[v + 1]
+        for p in range(passes):
+            es = slice(0, width) if narrow else slice(32 * p, min(32 * p + 32, width))
+            acc = torch.zeros_like(lanes[:, 0, es])
+            for c0 in range(j0, j1, 32):
+                n = min(32, j1 - c0)
+                for s0 in range(0, n, _STEPS * per):
+                    loads = {(g, k): lanes[:, cols[c0 + s0 + g * per + k], es]
+                             for g in range(_STEPS) for k in range(per)
+                             if s0 + g * per + k < n}
+                    for g in range(_STEPS):
+                        for q in range(per):
+                            if s0 + g * per + q < n:
+                                acc = acc + loads[(g, q)]
+            out[:, v, es] = acc
+    return out.reshape(src.shape[:-2] + out.shape[1:])
+
+
+@pytest.mark.parametrize("name", ["anchored", "high_degree"])
+@pytest.mark.parametrize("lanes,width,dtype", [((), 1, torch.float32), ((), 6, torch.float32),
+                                               ((2,), 6, torch.float64),
+                                               ((), 33, torch.float32),
+                                               ((), 36, torch.float64),
+                                               ((3,), 70, torch.float32)])
+def test_kernel_schedule_equals_index_add(name, lanes, width, dtype):
+    g = _graph(name)
+    idx = torch.cat([getattr(g, k) for k in tsolver._FACTOR_ENDS])
+    plan = tsolver._scatters(g).ends
+    rng = np.random.default_rng(width)
+    src = torch.from_numpy(rng.normal(size=lanes + (idx.shape[0], width))).to(dtype)
+    src = _zero_left_out(src, plan)
+    want = torch.zeros(lanes + (g.num_vars, width), dtype=dtype).index_add_(-2, idx, src)
+    got = _kernel_schedule_sum(src, plan)
+    assert torch.equal(got, want)
+    degree = (plan.rowptr[1:] - plan.rowptr[:-1])[plan.order.long()]
+    assert torch.all(degree[:-1] >= degree[1:])            # heavy rows start first
+    assert sorted(plan.order.tolist()) == list(range(g.num_vars))
