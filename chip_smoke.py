@@ -44,6 +44,14 @@ sm_90a), then runs fourteen phases, each of which raises on failure:
      near-ties, distances bit-equal where they agree, a lane alone equal
      to the same lane in its batch; duplicated targets, a lane without a
      valid target, a split boundary, the farm's largest shape, timed);
+     K5a, the solver's block-tridiagonal factor and solve
+     (``csrc/tridiag.cu``), on random SPD systems on LTSlam's chain layout
+     at phase 8's width and on ragged chains, float32 and float64, with no
+     lane, 4 and 120 lanes (the marginals' shape, timed): each launched
+     twice (the same bits), captured in a CUDA graph (the eager bits), and
+     no further from the float64 plain version than twice the plain float32
+     route, or 1e-6, both measured block by block (a block's error over its
+     own size: ``kernels.tridiag.card_rule``, through ``tridiag_rule``);
   3. card vs CPU: ``Removerter.run`` on a small synthetic survey on the CPU
      (plain versions) and on the card (kernels); the 14 named point sets
      agree within max(2, 1e-4·|set|) points;
@@ -87,7 +95,15 @@ sm_90a), then runs fourteen phases, each of which raises on failure:
      K5b must launch once a 1-NN call, LT-SLAM's peak memory is recorded;
      the scatter-sum kernel must launch, and its largest calls of the
      warm-up run are held to the plain version and timed against their
-     bound and ``index_add_``, wrapper and device time;
+     bound and ``index_add_``, wrapper and device time; every eager call of
+     the tridiagonal factor and solve (K5a) in the warm-up run is held to
+     its plain version under phase 2's rule (``TridiagCheck``), K5a must
+     launch once a call of each, its largest calls are timed (one call, a
+     call in a CUDA graph, the plain version, the bound, the longest chain,
+     the device ms a dependent step), a graph-replayed PCG iteration is
+     profiled by kernel with K5a and with the plain sweeps, and one run with
+     the plain sweeps gives the wall and the solver's stages beside the
+     timed run's;
   9. ``python -m ltm_torch.cli.ltmapper`` in a subprocess on session
      directories of 40 keyframes x 8 000 points a session: ``ltslam/``
      holds the eight trajectory files and ``removert/`` equals
@@ -149,8 +165,9 @@ It prints the ``{"kernels": [...]}`` line, the ``{"slam": {...}}`` line
 (phases 7-9), the ``{"lifelong": ..., "optin": ..., "headline": ..., "mesh": ...,
 "slam_mesh": ...}`` line (phases 10-14), then the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.  The ``kernels`` line lists K1, K4, K2
-and K3 (each with both variants), the solver's scatter-sum and K5b; the
-rest of the LT-SLAM path's hot loops are PyTorch ops, measured in phase 8.  Without a
+and K3 (each with both variants), the solver's scatter-sum, K5b and K5a's
+factor and solve; the rest of the LT-SLAM path's hot loops (the Scan
+Context distance and descriptors) are PyTorch ops, measured in phase 8.  Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero
 and prints no result.  The port imports neither ``jax`` nor ``ltm``.
 """
@@ -535,7 +552,8 @@ def sass_hot_blocks(lib_path, kernel="knn2_scan"):
 def device_profile(fn, top=8):
     """One profiled call of ``fn``: the card's busy share (summed kernel
     time over the wall, which the profiler's own host cost inflates, so the
-    share is a lower bound) and the kernels that took the most device time.
+    share is a lower bound) and the ``top`` kernels (None: all) that took
+    the most device time.
     Only the kernels' own entries are summed: the CPU operators that launch
     them report the same device time again."""
     import torch
@@ -839,10 +857,10 @@ def compare_scatter(name, src, plan, timed=False):
     return st
 
 
-def graph_replay_ms(fn, calls=50, reps=5):
-    """Device ms a call of ``fn`` with no host in the way: ``calls`` calls
-    captured as one CUDA graph, its replay timed by CUDA events (median of
-    ``reps``), divided by ``calls`` (how the PCG's graph replays pay)."""
+def capture(fn, calls=1):
+    """``calls`` calls of ``fn`` captured as one CUDA graph (after one call
+    on a side stream, as capture needs), replayed once: (the graph, the
+    last captured call's outputs)."""
     import torch
 
     side = torch.cuda.Stream()
@@ -853,10 +871,18 @@ def graph_replay_ms(fn, calls=50, reps=5):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(calls):
-            fn()
+            out = fn()
     graph.replay()
     torch.cuda.synchronize()
-    return cuda_ms(graph.replay, reps=reps) / calls
+    return graph, out
+
+
+def graph_replay_ms(fn, calls=50, reps=5):
+    """Device ms a call of ``fn`` with no host in the way: ``calls`` calls
+    captured as one CUDA graph (``capture``), its replay timed by CUDA
+    events (median of ``reps``), divided by ``calls`` (how the PCG's graph
+    replays pay)."""
+    return cuda_ms(capture(fn, calls)[0].replay, reps=reps) / calls
 
 
 def scatter_device_times(kernel, library, calls=200, profiled=50, turns=8):
@@ -1163,6 +1189,305 @@ def nn_cases(dev):
         out.append(st)
     set_nn_counts()
     return out
+
+
+# ---- K5a, the block-tridiagonal sweeps -----------------------------------------
+
+# LTSlam's chain layout at phase 8's width (1 026 variables: two anchors, then
+# 512 node slots a session, each session's first node pinned, 500 nodes used;
+# slam/pipeline.py:199-214): phase 2's cases take it, phase 8 records the real one
+SLAM_CHAIN_LENGTHS = (1, 1, 1, 499) + (1,) * 12 + (1, 499) + (1,) * 12
+
+
+def tridiag_rule(got, plain, inputs):
+    """``kernels.tridiag.card_rule`` on a factor's ``Cinv`` (6×6 blocks) or
+    a solve's x (rows of 6): (the kernel's largest block error, the plain
+    float32 route's, the kernel's largest absolute error); raises past the
+    limit."""
+    from ltm_torch.kernels.tridiag import card_rule
+
+    return card_rule(got, plain, inputs, 2 if plain is factor_out else 1)
+
+
+def factor_out(D, L, pos):
+    from ltm_torch.kernels.tridiag import tridiag_factor_plain
+
+    return tridiag_factor_plain(D, L, pos)[0]
+
+
+def apply_out(Cinv, Lc, pos, r):
+    from ltm_torch.kernels.tridiag import tridiag_apply_plain
+
+    return tridiag_apply_plain(Cinv, Lc, pos, r)
+
+
+def tridiag_counts():
+    from ltm_torch.kernels import tridiag
+
+    return tridiag.tridiag_factor.launches, tridiag.tridiag_apply.launches
+
+
+def set_tridiag_counts(values=(0, 0)):
+    from ltm_torch.kernels import tridiag
+
+    tridiag.tridiag_factor.launches, tridiag.tridiag_apply.launches = values
+
+
+def captured(fn):
+    """The outputs of ``fn()`` (a tuple of tensors) from one replay of a
+    CUDA graph that captured it (``capture``)."""
+    return tuple(t.clone() for t in capture(fn)[1])
+
+
+def tridiag_bound(which, args):
+    """(bound_ms, bound_by) of one K5a call: the larger of its bytes at the
+    HBM rate and its operations at the peak rate of the inputs' type, over
+    the valid variables alone (a variable's blocks, row of ``r`` and entry
+    of ``pos``; not the chain-major padding past a chain's end, which the
+    function need not produce and the solve does not read).  The factor
+    reads D and L and writes Cinv, a block each a variable (two 6x6
+    products and an inverse, ~1 296 flops); the solve reads Cinv and L and
+    writes x, a lane reading r (four 6x6 mat-vecs, 288 flops, a block a
+    lane).  A throughput bound: the chains' dependent steps, not bytes or
+    flops, bound these kernels (``ms_per_dependent_step``)."""
+    import torch
+
+    if which == "factor":
+        D, L, pos = args
+        V, dtype = D.shape[0], D.dtype
+        ops = 1296.0 * V
+        nbytes = 3 * V * 36 * D.element_size() + V * 8
+    else:
+        Cinv, Lc, pos, r = args
+        V, dtype = r.shape[-2], r.dtype
+        lanes = r.numel() // (V * 6)
+        ops = 288.0 * lanes * V
+        nbytes = (2 * V * 36 + 2 * r.numel()) * r.element_size() + V * 8
+    rate = H100_FP32_FLOPS if dtype == torch.float32 else H100_FP64_FLOPS
+    t_ops, t_bytes = ops / rate, nbytes / H100_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def compare_tridiag(name, D, L, pos, r, timed=False):
+    """K5a on one system: the factor and the solve through their kernels,
+    each launched twice (the same bits), captured in a CUDA graph (the
+    eager bits), held to the plain version under ``tridiag_rule``, the
+    kernel's ``Lc`` bit-equal to the plain gather.  With ``timed``, for
+    each: ms by CUDA events (median of 5), a call's ms in a CUDA graph
+    (``graph_replay_ms``: 50 calls; the plain version's, whose graph is
+    thousands of nodes a call, 2 calls), the plain version's ms (once), the
+    throughput bound, the longest chain and the device ms a dependent step
+    (graph ms over max_len, or 2 max_len for the solve).  The launch counts
+    are restored."""
+    import torch
+
+    from ltm_torch.kernels.tridiag import (tridiag_apply, tridiag_apply_plain, tridiag_factor,
+                                          tridiag_factor_plain)
+
+    saved = tridiag_counts()
+    try:
+        Cinv, Lc = tridiag_factor(D, L, pos)
+        C2, L2 = tridiag_factor(D, L, pos)
+        x = tridiag_apply(Cinv, Lc, pos, r)
+        x2 = tridiag_apply(Cinv, Lc, pos, r)
+        Cg, Lg, xg = captured(lambda: (*tridiag_factor(D, L, pos), tridiag_apply(Cinv, Lc, pos, r)))
+        repeat = int((C2 != Cinv).sum() + (L2 != Lc).sum() + (x2 != x).sum())
+        graph = int((Cg != Cinv).sum() + (Lg != Lc).sum() + (xg != x).sum())
+        lc_differ = int((Lc != tridiag_factor_plain(D, L, pos)[1]).sum())
+        if repeat or graph or lc_differ:
+            raise AssertionError(f"K5a {name}: {repeat} entries apart between launches, {graph} "
+                                 f"between a captured and an eager call, {lc_differ} in Lc")
+        V = D.shape[0]
+        f_rel, f_plain, f_abs = tridiag_rule(Cinv, factor_out, (D, L, pos))
+        a_rel, a_plain, a_abs = tridiag_rule(x, apply_out, (Cinv, Lc, pos, r))
+        steps = int((pos < V).sum(1).max())        # the longest chain
+        st = {"case": name, "dtype": str(D.dtype).split(".")[-1], "variables": V,
+              "n_chains": pos.shape[0], "max_len": steps, "lanes": list(r.shape[:-2]),
+              "factor": {"max_rel_err": f_rel, "plain_f32_rel_err": f_plain, "max_abs_err": f_abs},
+              "apply": {"max_rel_err": a_rel, "plain_f32_rel_err": a_plain, "max_abs_err": a_abs},
+              "repeat_differ": repeat, "captured_differ": graph}
+        if timed:
+            calls = {"factor": ((D, L, pos), tridiag_factor, tridiag_factor_plain, steps),
+                     "apply": ((Cinv, Lc, pos, r), tridiag_apply, tridiag_apply_plain, 2 * steps)}
+            for which, (args, kernel, plain, dependent) in calls.items():
+                graph_ms = graph_replay_ms(lambda: kernel(*args))
+                bound_ms, bound_by = tridiag_bound(which, args)
+                st[which].update(
+                    ms=cuda_ms(lambda: kernel(*args), reps=5),
+                    graph_replay_ms=graph_ms,
+                    plain_ms=cuda_ms(lambda: plain(*args), reps=1),
+                    plain_graph_replay_ms=graph_replay_ms(lambda: plain(*args), calls=2,
+                                                          reps=1),
+                    bound_ms=bound_ms, bound_by=bound_by, dependent_steps=dependent,
+                    ms_per_dependent_step=graph_ms / dependent)
+            torch.cuda.synchronize()
+    finally:
+        set_tridiag_counts(saved)
+    return st
+
+
+def tridiag_cases(dev):
+    """Phase 2, K5a: random SPD systems (``random_chain_system``) on LTSlam's
+    chain layout at phase 8's width (30 chains, two of 499 variables, 28 of
+    one), float32 and float64, with no lane, 4 lanes and 120 lanes (the
+    marginals' 6·M lanes of 20 variables; timed in float32), and on ragged
+    chains (1 to 300 variables), each through ``compare_tridiag``."""
+    import torch
+
+    from ltm_torch.kernels.tridiag import random_chain_system
+
+    rng = np.random.default_rng(29)
+    out = []
+    for dtype in (torch.float32, torch.float64):
+        for lanes in ((), (4,), (120,)):
+            D, L, pos = random_chain_system(rng, SLAM_CHAIN_LENGTHS, dtype, dev)
+            r = torch.from_numpy(rng.normal(size=lanes + (D.shape[0], 6))).to(dev, dtype)
+            timed = dtype == torch.float32 and lanes == (120,)
+            out.append(compare_tridiag(f"slam_layout_{len(lanes) and lanes[0]}_lanes", D, L, pos,
+                                       r, timed=timed))
+    D, L, pos = random_chain_system(rng, (1, 300, 2, 1, 57, 140, 1, 33), torch.float32, dev)
+    r = torch.from_numpy(rng.normal(size=(4, D.shape[0], 6))).to(dev, torch.float32)
+    out.append(compare_tridiag("ragged_4_lanes", D, L, pos, r))
+    for st in out:
+        log(f"[2] tridiag (K5a) {json.dumps(st)}")
+    return out
+
+
+class TridiagCheck:
+    """Holds every eager call of the solver's sweeps in a run
+    (``graph.solver``'s ``_tridiag_factor`` and ``_tridiag_apply``,
+    through K5a) to the plain version under ``tridiag_rule`` as it happens,
+    and keeps the largest call of each (the solve's by lanes) and the
+    chain layout; a call inside a CUDA graph's capture is counted and runs
+    unchecked (its replays are that captured launch).  The comparisons
+    launch no kernel."""
+
+    def __init__(self):
+        from ltm_torch.graph import solver
+
+        self.mod = solver
+        self.fns = {"factor": solver._tridiag_factor, "apply": solver._tridiag_apply}
+        self.stats = {w: {"calls": 0, "checked": 0, "captured": 0, "max_rel_err": 0.0,
+                          "plain_f32_rel_err": 0.0, "max_abs_err": 0.0, "worst_share_of_limit": 0.0}
+                      for w in self.fns}
+        self.largest = {}
+        self.layout = None
+        solver._tridiag_factor = lambda D, L, ch: self._checked("factor", (D, L, ch))
+        solver._tridiag_apply = lambda Cinv, Lc, ch, r: self._checked("apply", (Cinv, Lc, ch, r))
+
+    def _checked(self, which, args):
+        import torch
+
+        from ltm_torch.kernels.tridiag import RULE_FLOOR
+
+        out = self.fns[which](*args)
+        st = self.stats[which]
+        st["calls"] += 1
+        if torch.cuda.is_current_stream_capturing():
+            st["captured"] += 1
+            return out
+        pos = args[2].pos
+        plain_args = (*args[:2], pos, *args[3:])
+        got = out[0] if which == "factor" else out
+        rel, plain_rel, abs_err = tridiag_rule(got, factor_out if which == "factor" else apply_out,
+                                               plain_args)
+        st["checked"] += 1
+        st["max_rel_err"] = max(st["max_rel_err"], rel)
+        st["plain_f32_rel_err"] = max(st["plain_f32_rel_err"], plain_rel)
+        st["max_abs_err"] = max(st["max_abs_err"], abs_err)
+        st["worst_share_of_limit"] = max(st["worst_share_of_limit"],
+                                         rel / max(2 * plain_rel, RULE_FLOOR))
+        size = plain_args[-1].numel()
+        if which not in self.largest or size > self.largest[which][-1].numel():
+            self.largest[which] = tuple(a.clone() for a in plain_args)
+        if self.layout is None:
+            lengths = (pos < args[0].shape[0] if which == "factor" else pos < args[3].shape[-2])
+            lengths = lengths.sum(1).cpu().numpy()
+            self.layout = {"n_chains": int(pos.shape[0]), "max_len": int(pos.shape[1]),
+                           "variables": int(lengths.sum()),
+                           "lengths_min_p50_max": [int(lengths.min()), float(np.median(lengths)),
+                                                   int(lengths.max())],
+                           "chains_of_one": int((lengths == 1).sum()),
+                           "chains_over_100": int((lengths > 100).sum())}
+        return out
+
+    def restore(self):
+        self.mod._tridiag_factor, self.mod._tridiag_apply = self.fns["factor"], self.fns["apply"]
+
+
+@contextlib.contextmanager
+def plain_sweeps():
+    """The solver's sweeps through their plain versions on the card (the
+    route before K5a), for a same-card comparison."""
+    from ltm_torch.graph import solver
+    from ltm_torch.kernels.tridiag import tridiag_apply_plain, tridiag_factor_plain
+
+    saved = solver._tridiag_factor, solver._tridiag_apply
+    solver._tridiag_factor = lambda D, L, ch: tridiag_factor_plain(D, L, ch.pos)
+    solver._tridiag_apply = lambda Cinv, Lc, ch, r: tridiag_apply_plain(Cinv, Lc, ch.pos, r)
+    try:
+        yield
+    finally:
+        solver._tridiag_factor, solver._tridiag_apply = saved
+
+
+class PcgRecorder:
+    """Keeps the arguments of the last one-device PCG of a run
+    (``graph.solver._pcg``: the Gauss-Newton product, the right-hand side,
+    the preconditioner's solve and the graph), to replay its iteration."""
+
+    def __init__(self):
+        from ltm_torch.graph import solver
+
+        self.mod, self.fn, self.args = solver, solver._pcg, None
+
+        def recording(hvp, b, apply_prec, g, *rest, **kw):
+            self.args = (hvp, b, apply_prec, g)
+            return self.fn(hvp, b, apply_prec, g, *rest, **kw)
+        solver._pcg = recording
+
+    def restore(self):
+        self.mod._pcg = self.fn
+
+
+def pcg_iteration_profile(args, replays=20):
+    """Device time of one graph-replayed PCG iteration by kernel: the
+    recorded PCG (``PcgRecorder``) run for 1 + ``replays`` iterations (one
+    eager, then the captured iteration replayed) and for 1, each under
+    ``device_profile``, their difference over ``replays``; the wall a
+    replayed iteration likewise (host clock, a sync at each end: the PCG's
+    host read an iteration included).  The sweeps' share: the
+    ``tridiag_apply`` kernel's device time over the iteration's."""
+    import torch
+
+    from ltm_torch.graph import solver
+
+    hvp, b, apply_prec, g = args
+
+    def run(iters):
+        solver._pcg(hvp, b, apply_prec, g, iters, 0.0)
+
+    def wall(iters):
+        run(iters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(iters)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    run(1 + replays)
+    st = {"replays": replays,
+          "wall_ms_per_iteration": (wall(1 + replays) - wall(1)) * 1e3 / replays}
+    one, many = device_profile(lambda: run(1), top=None), device_profile(lambda: run(1 + replays),
+                                                                         top=None)
+    per = {k: (v - one["top_device_ms"].get(k, 0.0)) / replays
+           for k, v in many["top_device_ms"].items()}
+    total = (many["device_busy_s"] - one["device_busy_s"]) * 1e3 / replays
+    sweeps = sum(v for k, v in per.items() if "tridiag_apply" in k)
+    st.update(device_ms_per_iteration=total, tridiag_apply_device_ms=sweeps,
+              sweeps_share=sweeps / total if total > 0 else "not measured",
+              top_device_ms=dict(sorted(per.items(), key=lambda kv: -kv[1])[:8]))
+    return st
 
 
 # ---- K2 and K3, the visibility sweeps --------------------------------------
@@ -2217,7 +2542,7 @@ def hot_loop_bound_s(name, args) -> float:
     """The least time the card could take for one hot-loop call: the larger
     of its bytes (inputs read once, outputs written once) at the HBM rate
     and its FP32 operations at the non-tensor peak, from the call's shapes
-    (the 1-NN: 8 flops a valid pair)."""
+    (the 1-NN: 8 flops a valid pair; the sweeps: ``tridiag_bound``)."""
     if name == "icp_1nn":
         q, qm, t, tm = args[:4]
         ops = 8.0 * float((qm.sum(-1).double() * tm.sum(-1).double()).sum())
@@ -2230,15 +2555,9 @@ def hot_loop_bound_s(name, args) -> float:
         xyz, mask = args[0], args[1]
         ops = 0.0
         nbytes = xyz.numel() * 4 + mask.numel() + xyz.shape[0] * 20 * 60 * 4
-    elif name == "tridiag_factor":
-        V = args[0].shape[0]
-        ops = V * (4 * 216 + 2 * 216)                  # two 6x6 products and an inverse a block
-        nbytes = 3 * V * 36 * 4
-    else:                                              # tridiag_apply (Cinv, Lc, chains, r)
-        r = args[3]
-        lanes = r.numel() // (r.shape[-2] * 6)
-        ops = lanes * r.shape[-2] * 4 * 72.0           # four 6x6 mat-vecs a block
-        nbytes = 2 * args[0].numel() * 4 + 2 * r.numel() * 4
+    else:                                              # the sweeps: (D, L, chains), (Cinv, Lc, chains, r)
+        which = "factor" if name == "tridiag_factor" else "apply"
+        return tridiag_bound(which, (*args[:2], args[2].pos, *args[3:]))[0] / 1e3
     return max(ops / H100_FP32_FLOPS, nbytes / H100_BYTES_PER_S)
 
 
@@ -2326,10 +2645,15 @@ def slam_run(cfg, b, hot=None, mesh=None):
 
 def phase_slam_full_width():
     """Phase 8: ``bench.py:_slam_bench``'s workload (500 keyframes a session,
-    ~1 000 pose-graph nodes, ``LTSlamConfig()``): a warm-up, one timed run
-    (ATE ≤ 0.10 m), an instrumented run that times each hot-loop call outside
-    the PCG's graph replays with a sync on each side, one run with 10 RS
-    loops (ATE ≤ 0.10 m) and one at
+    ~1 000 pose-graph nodes, ``LTSlamConfig()``): a warm-up (every 1-NN call
+    and every eager sweep call held to its plain version, the last PCG
+    recorded), one timed run (ATE ≤ 0.10 m; K5a's launches equal to the
+    sweeps' calls), one run with the plain sweeps (the same card, before
+    K5a), K5a at the warm-up's largest calls (``compare_tridiag``, timed),
+    a graph-replayed PCG iteration by kernel with the kernel and with the
+    plain sweeps (``pcg_iteration_profile``), an instrumented run that
+    times each hot-loop call outside the PCG's graph replays with a sync on
+    each side, one run with 10 RS loops (ATE ≤ 0.10 m) and one at
     ``odom_noise=4e-3`` (ATE ≤ 0.25 m).  Returns the summary and the last
     timed run (``slam``, ``res``, ``stats``: phase 14's reference)."""
     import torch
@@ -2347,34 +2671,50 @@ def phase_slam_full_width():
 
     runs = []
     scatter_calls = {}
-    for i in range(2):   # run 0 warms up, recording the scatter-sums and checking each 1-NN call
-        if i == 1:
+    sweeps = pcg = None
+    for i in range(2):   # run 0 warms up, recording the scatter-sums and the last PCG and
+        if i == 1:       # checking each 1-NN call and each eager sweep
             torch.cuda.reset_peak_memory_stats()
         fixed_order_sum.launches = 0
         set_nn_counts()
+        set_tridiag_counts()
         farm = NnFarmCheck() if i == 0 else None
+        if i == 0:
+            sweeps, pcg = TridiagCheck(), PcgRecorder()
         hot = HotLoops()
         solver.fixed_order_sum = scatter_recorder(scatter_calls) if i == 0 else fixed_order_sum
         try:
             slam, res, st = slam_run(LTSlamConfig(), bundle, hot)
         finally:
             hot.restore()
-            if farm is not None:
-                farm.restore()
+            if i == 0:
+                for check in (farm, sweeps, pcg):
+                    check.restore()
             solver.fixed_order_sum = fixed_order_sum
         st["run"] = i
         st["scatter_launches"] = fixed_order_sum.launches
         st["nn_launches"], st["nn_merges"] = nn_counts()
+        st["tridiag_launches"] = dict(zip(("factor", "apply"), tridiag_counts()))
         if fixed_order_sum.launches <= 0:
             raise AssertionError("LT-SLAM launched no fixed-order scatter-sum")
         if st["nn_launches"] != st["hot_loop_calls"]["icp_1nn"]:
             raise AssertionError(f"ICP 1-NN: {st['hot_loop_calls']['icp_1nn']} calls, "
                                  f"{st['nn_launches']} K5b launches")
+        for which, n in st["tridiag_launches"].items():
+            if n != st["hot_loop_calls"][f"tridiag_{which}"] or n <= 0:
+                raise AssertionError(f"tridiag_{which}: {st['hot_loop_calls'][f'tridiag_{which}']} "
+                                     f"calls, {n} K5a launches")
         if farm is not None:
             st["nn_farm_check"] = farm.stats
             if farm.stats["calls"] != st["nn_launches"] or not farm.stats["calls"]:
                 raise AssertionError(f"the farm check saw {farm.stats['calls']} of "
                                      f"{st['nn_launches']} 1-NN calls")
+        if i == 0:
+            st["tridiag_check"], st["tridiag_layout"] = sweeps.stats, sweeps.layout
+            for which, cs in sweeps.stats.items():
+                if cs["calls"] != st["tridiag_launches"][which] or not cs["checked"]:
+                    raise AssertionError(f"the sweep check saw {cs['calls']} of "
+                                         f"{st['tridiag_launches'][which]} {which} calls")
         runs.append(st)
         log(f"[8] {json.dumps(st)}")
         if st["ate_rmse_m"] > ATE_BOUND:
@@ -2383,6 +2723,26 @@ def phase_slam_full_width():
             raise AssertionError("full width: no SC loop accepted")
     peak = torch.cuda.max_memory_allocated()
     ref = {"slam": slam, "res": res, "stats": runs[-1], "bundle": bundle}
+
+    with plain_sweeps():           # the same workload on the same card, the sweeps as before K5a
+        _, _, plain_run = slam_run(LTSlamConfig(), bundle)
+    if plain_run["ate_rmse_m"] > ATE_BOUND:
+        raise AssertionError(f"plain-sweeps run: ATE {plain_run['ate_rmse_m']} m > {ATE_BOUND} m")
+    optimize = {r: {k: v for k, v in st["stages_s"].items() if k.startswith("ltslam.optimize.")}
+                for r, st in (("kernel", runs[1]), ("plain", plain_run))}
+    same_card = {r: {"wall_s": st["wall_s"], "optimize_s": sum(optimize[r].values()),
+                     "optimize_stages_s": optimize[r], "ate_rmse_m": st["ate_rmse_m"]}
+                 for r, st in (("kernel", runs[1]), ("plain", plain_run))}
+    log(f"[8] same card, the timed run (kernels) and one run with the plain sweeps: "
+        f"{json.dumps(same_card)}")
+    # the factor's call (all of a run's have its shape) and the solve's with the most lanes
+    tridiag_largest = compare_tridiag("phase8_largest", *sweeps.largest["factor"],
+                                      sweeps.largest["apply"][3], timed=True)
+    log(f"[8] K5a at phase 8's largest calls: {json.dumps(tridiag_largest)}")
+    pcg_profile = {"kernel": pcg_iteration_profile(pcg.args)}
+    with plain_sweeps():
+        pcg_profile["plain"] = pcg_iteration_profile(pcg.args)
+    log(f"[8] a graph-replayed PCG iteration, by kernel: {json.dumps(pcg_profile)}")
 
     hot = HotLoops(timed=True)     # the PCG replays its graph: the sweeps run eagerly outside it
     try:
@@ -2438,6 +2798,13 @@ def phase_slam_full_width():
         "instrumented_optimize_s": optimize_s,
         "largest_1nn_call": nn,
         "max_memory_allocated_bytes": peak,
+        "tridiag_launches_per_run": {w: [r["tridiag_launches"][w] for r in timed]
+                                     for w in ("factor", "apply")},
+        "tridiag_check": runs[0]["tridiag_check"],
+        "tridiag_layout": runs[0]["tridiag_layout"],
+        "tridiag_largest_call": tridiag_largest,
+        "pcg_iteration_profile": pcg_profile,
+        "same_card_plain_sweeps": same_card,
     }
     log(f"[8] {json.dumps(summary)}")
     return summary, ref
@@ -4091,6 +4458,7 @@ def main() -> int:
     km4 = phase_chunk_cases(dev)
     sweep_cases = phase_sweep_cases(dev)
     nn_phase2 = nn_cases(dev)
+    k5a_phase2 = tridiag_cases(dev)
 
     cfg = RemovertConfig()
     cfg.downsample_voxel_size = 0.1
@@ -4314,6 +4682,55 @@ def main() -> int:
                                   for st in nn_phase2 if st["case"] == "farm_largest"),
         "cases": len(nn_phase2),
     })
+    k5a = fw["tridiag_largest_call"]
+    k5a_cases = k5a_phase2 + [k5a]
+    marginals = next(st for st in k5a_phase2 if st["lanes"] == [120] and "ms" in st["apply"])
+    route = {"factor": "tridiag_factor<float|double> (a CTA of 64 threads a chain, an entry a "
+                       "thread; two 6x6 products and an in-place Gauss-Jordan inverse a step, "
+                       "the next step's blocks loaded during this one)",
+             "apply": "tridiag_apply<float|double> (a warp a (lane, chain); the carried "
+                      "6-vector in lanes 0-5, each mat-vec six shuffles and six FMAs; forward "
+                      "pass, then back substitution, y kept in the output)"}
+    for which, line in (("factor", "ltm/graph/solver.py:198"), ("apply", "ltm/graph/solver.py:222")):
+        st = k5a[which]
+        kernels.append({
+            "name": f"tridiag_{which} (K5a)",
+            "route": "cuda",
+            "route_kernels": [route[which]],
+            "source": "ltm_torch/csrc/tridiag.cu",
+            "replaces": line,
+            "launches": fw["tridiag_launches_per_run"][which][-1],
+            "launches_path": "phase 8 (LTSlam.run, LTSlamConfig()): eager calls, the call each "
+                             "PCG captures included; its CUDA-graph replays launch without a "
+                             "count",
+            "max_abs_err": max([fw["tridiag_check"][which]["max_abs_err"]]
+                               + [c[which]["max_abs_err"] for c in k5a_cases]),
+            "max_abs_err_is": "against the float64 plain version on the same inputs",
+            "max_rel_err": max([fw["tridiag_check"][which]["max_rel_err"]]
+                               + [c[which]["max_rel_err"] for c in k5a_cases]),
+            "plain_f32_rel_err": max([fw["tridiag_check"][which]["plain_f32_rel_err"]]
+                                     + [c[which]["plain_f32_rel_err"] for c in k5a_cases]),
+            "rule": "max_rel_err <= max(2 x the plain float32 route's, 1e-6), each call; "
+                    "both the largest block's error over that block's size (a 6x6 block of "
+                    "Cinv, a row of x)",
+            "calls_checked_phase8_warmup": fw["tridiag_check"][which]["checked"],
+            "worst_share_of_limit_phase8_warmup":
+                fw["tridiag_check"][which]["worst_share_of_limit"],
+            "ms": st["ms"], "graph_replay_ms": st["graph_replay_ms"], "plain_ms": st["plain_ms"],
+            "plain_graph_replay_ms": st["plain_graph_replay_ms"],
+            "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
+            "bound_is": "throughput (bytes or operations) over the valid variables; the "
+                        "chains' dependent steps bind",
+            "max_len": k5a["max_len"], "dependent_steps": st["dependent_steps"],
+            "ms_per_dependent_step": st["ms_per_dependent_step"],
+            "library_ms": None,
+            "library": "none: no PyTorch call computes a block-tridiagonal factor or solve",
+            "call": {"variables": k5a["variables"], "n_chains": k5a["n_chains"],
+                     "lanes": k5a["lanes"], "dtype": k5a["dtype"]},
+            "marginals_shape_ms": marginals[which]["ms"],
+            "marginals_shape_graph_replay_ms": marginals[which]["graph_replay_ms"],
+            "cases": len(k5a_phase2),
+        })
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"slam": slam}))

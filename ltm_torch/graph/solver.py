@@ -32,7 +32,10 @@ after it, or one no adjacent between factor reaches) starts a chain, and
 there the sequential recurrence restarts anyway (``C_i = D_i``,
 ``y_i = r_i``), so the batched sweep gives the sequential one's values
 with one step per variable of the longest chain instead of one per
-variable.
+variable.  On CPU tensors the sweeps are the plain loops of
+``kernels/tridiag.py`` (a batched torch op a step); on the card each
+factor and each solve is one launch of ``csrc/tridiag.cu`` (K5a: a CTA a
+chain, a warp a (lane, chain)), the solve inside the PCG's CUDA graph.
 """
 
 from __future__ import annotations
@@ -47,6 +50,8 @@ from ltm_torch.core import se3
 from ltm_torch.core.config import SolverConfig
 from ltm_torch.graph.factors import GraphData, robust_weights, total_cost, whitened_residuals
 from ltm_torch.kernels.scatter import ScatterPlan, fixed_order_sum, plan_scatter
+from ltm_torch.kernels.tridiag import (tridiag_apply, tridiag_apply_plain, tridiag_factor,
+                                      tridiag_factor_plain)
 from ltm_torch.utils import count_host_read
 
 __all__ = ["solve", "marginal_covariance", "SolveInfo"]
@@ -252,46 +257,26 @@ def _chains(g: GraphData) -> _Chains:
 
 
 def _tridiag_factor(D: torch.Tensor, L: torch.Tensor, ch: _Chains):
-    """Block-Thomas factorization of the SPD block-tridiagonal (D, L):
-    ``Cinv`` with ``C_0 = D_0``, ``C_i = D_i − L_i C_{i-1}⁻¹ L_iᵀ``, as
-    ``(n_chains, max_len, 6, 6)`` chain-major blocks (identity past a
-    chain's end), with the chain-major ``L``."""
-    eye = torch.eye(6, dtype=D.dtype, device=D.device)
-    Dc = torch.cat([D, eye[None]])[ch.pos]
-    Lc = torch.cat([L, torch.zeros_like(eye)[None]])[ch.pos]
-    prev = eye.expand(ch.pos.shape[0], 6, 6)
-    out = []
-    for i in range(ch.pos.shape[1]):
-        L_i = Lc[:, i]
-        C = Dc[:, i] - torch.matmul(L_i, torch.matmul(prev, L_i.transpose(-1, -2)))
-        prev = torch.linalg.inv_ex(C).inverse
-        out.append(prev)
-    return torch.stack(out, 1), Lc
+    """Block-Thomas factorization of the SPD block-tridiagonal (D, L) over
+    the chains ``ch``: ``(Cinv, Lc)``, chain-major (n_chains, max_len, 6, 6)
+    (``kernels/tridiag.py``).  CPU tensors take the plain loop, CUDA tensors
+    launch the kernel (K5a); any other device raises."""
+    if D.device.type == "cpu":
+        return tridiag_factor_plain(D, L, ch.pos)
+    if D.device.type == "cuda":
+        return tridiag_factor(D, L, ch.pos)
+    raise ValueError(f"_tridiag_factor runs on cuda or cpu, not {D.device}")
 
 
 def _tridiag_apply(Cinv: torch.Tensor, Lc: torch.Tensor, ch: _Chains, r: torch.Tensor) -> torch.Tensor:
-    """Solve M x = r (r: (..., V, 6)) from the factorization: forward
-    elimination, then back substitution, over the chains side by side."""
-    V = r.shape[-2]
-    rc = torch.cat([r, torch.zeros_like(r[..., :1, :])], -2)[..., ch.pos, :]   # (..., n, len, 6)
-    n_steps = ch.pos.shape[1]
-    u = torch.zeros_like(rc[..., 0, :])
-    ys = []
-    for i in range(n_steps):
-        y_i = rc[..., i, :] - torch.matmul(Lc[:, i], u[..., None])[..., 0]
-        u = torch.matmul(Cinv[:, i], y_i[..., None])[..., 0]
-        ys.append(y_i)
-    x_next = torch.zeros_like(u)
-    xs = [None] * n_steps
-    for i in range(n_steps - 1, -1, -1):
-        L_n = Lc[:, i + 1] if i + 1 < n_steps else torch.zeros_like(Lc[:, 0])
-        x_next = torch.matmul(Cinv[:, i], (ys[i] - torch.matmul(L_n.transpose(-1, -2),
-                                                                x_next[..., None])[..., 0])[..., None])[..., 0]
-        xs[i] = x_next
-    xc = torch.stack(xs, -2).flatten(-3, -2)                           # (..., n·len, 6)
-    x = torch.zeros(r.shape[:-2] + (V + 1, 6), dtype=r.dtype, device=r.device)
-    x.index_copy_(-2, ch.pos.reshape(-1), xc)      # pads (all zero) land on row V
-    return x[..., :V, :]
+    """Solve M x = r (r: (..., V, 6)) from the factorization, over the
+    chains side by side (``kernels/tridiag.py``): the plain loop on CPU
+    tensors, the kernel (K5a) on CUDA tensors; any other device raises."""
+    if r.device.type == "cpu":
+        return tridiag_apply_plain(Cinv, Lc, ch.pos, r)
+    if r.device.type == "cuda":
+        return tridiag_apply(Cinv, Lc, ch.pos, r)
+    raise ValueError(f"_tridiag_apply runs on cuda or cpu, not {r.device}")
 
 
 def _fj(J: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -337,10 +322,9 @@ def _pcg(hvp, b, apply_prec, g: GraphData, iters: int, tol: float, capture: bool
     has stopped or ``iters`` iterations ran, which the host learns from one
     read an iteration.
 
-    On the card the iteration (``hvp``, the preconditioner's sweeps — some
-    three thousand small launches on a 1 000-node graph — and the vector
-    updates) is captured once as a CUDA graph after one eager iteration and
-    replayed: the same ops on the same buffers, without the host's launch
+    On the card the iteration (``hvp``, the preconditioner's solve — one
+    kernel launch — and the vector updates) is captured once as a CUDA
+    graph after one eager iteration and replayed: the same ops on the same buffers, without the host's launch
     cost.  ``capture=False`` runs every iteration eagerly (an ``hvp`` that
     copies between devices or runs a collective)."""
 

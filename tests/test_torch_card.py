@@ -14,7 +14,16 @@ JAX) and without the CPU settings of ``pytest.ini``:
     split (a nearest target on both sides of a split boundary);
   * the fixed-order scatter-sum (``csrc/scatter.cu``) bit-equal to
     ``fixed_order_sum_plain`` at rows of 1 to 70 elements, float32 and
-    float64, with lanes and rows of high degree.
+    float64, with lanes and rows of high degree;
+  * K5a, the solver's block-tridiagonal factor and solve
+    (``csrc/tridiag.cu``), on random SPD systems with chain cuts and ragged
+    chains (1 to 300 variables), float32 and float64, with no lane, 4 and
+    120 lanes: no further from the float64 plain version (the inputs cast
+    up) than twice the plain float32 route, or 1e-6, block by block (a
+    6×6 block of ``Cinv`` or a row of x, its error over its own size:
+    ``kernels.tridiag.card_rule``);
+    ``Lc`` bit-equal to the plain gather; a second launch bit-equal; a call
+    captured in a CUDA graph equal to the eager call.
 
 ``chip_smoke.py`` runs the same checks at the pipeline's shapes.
 """
@@ -26,6 +35,8 @@ import torch
 from ltm_torch.kernels import nn_argmin
 from ltm_torch.kernels.knn import nn_sqdist_argmin, nn_sqdist_argmin_plain
 from ltm_torch.kernels.scatter import fixed_order_sum, fixed_order_sum_plain, plan_scatter
+from ltm_torch.kernels.tridiag import (card_rule, random_chain_system, tridiag_apply,
+                                      tridiag_apply_plain, tridiag_factor, tridiag_factor_plain)
 
 pytestmark = pytest.mark.card
 
@@ -124,3 +135,41 @@ def test_scatter_kernel_matches_plain(dev, dtype, lanes, width):
     assert fixed_order_sum.launches == launches + 1
     assert torch.equal(got, fixed_order_sum(src, plan))
     assert torch.equal(got, fixed_order_sum_plain(src, plan))
+
+
+CHAIN_LENGTHS = (1, 300, 2, 1, 1, 57, 140, 1, 33)
+
+
+def _captured(fn):
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return tuple(t.clone() for t in out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("lanes", [(), (4,), (120,)])
+def test_tridiag_kernels_match_plain(dev, dtype, lanes):
+    rng = np.random.default_rng(len(lanes) and lanes[0])
+    D, L, pos = random_chain_system(rng, CHAIN_LENGTHS, dtype, dev)
+    r = torch.from_numpy(rng.normal(size=lanes + (D.shape[0], 6))).to(dev, dtype)
+    launches = tridiag_factor.launches, tridiag_apply.launches
+    Cinv, Lc = tridiag_factor(D, L, pos)
+    x = tridiag_apply(Cinv, Lc, pos, r)
+    assert (tridiag_factor.launches, tridiag_apply.launches) == (launches[0] + 1, launches[1] + 1)
+    assert x.shape == r.shape and Cinv.shape == pos.shape + (6, 6)
+    C2, L2 = tridiag_factor(D, L, pos)
+    assert torch.equal(C2, Cinv) and torch.equal(L2, Lc)
+    assert torch.equal(tridiag_apply(Cinv, Lc, pos, r), x)
+    Cg, Lg, xg = _captured(lambda: (*tridiag_factor(D, L, pos), tridiag_apply(Cinv, Lc, pos, r)))
+    assert torch.equal(Cg, Cinv) and torch.equal(Lg, Lc) and torch.equal(xg, x)
+    assert torch.equal(Lc, tridiag_factor_plain(D, L, pos)[1])
+    card_rule(Cinv, lambda *a: tridiag_factor_plain(*a)[0], (D, L, pos), 2)   # raises past it
+    card_rule(x, tridiag_apply_plain, (Cinv, Lc, pos, r), 1)

@@ -1,0 +1,349 @@
+"""The solver's block-tridiagonal sweeps (K5a, ``kernels/tridiag.py``) on
+the CPU.
+
+  * the plain versions (``tridiag_factor_plain``, ``tridiag_apply_plain``)
+    against ``ltm``'s sequential sweeps under ``jit``, rtol 1e-4, on chain
+    graphs with fixed-variable cuts, ragged chains, isolated variables and
+    a graph of one variable, for right-hand sides with no lane, 3 lanes and
+    2 × 6 lanes, in float32 and float64 (``ltm`` with 64-bit types on);
+  * ``graph/solver.py``'s ``_tridiag_factor`` and ``_tridiag_apply`` give
+    the plain versions' bits on CPU tensors;
+  * the kernel wrappers raise on CPU tensors, and on wrong shapes, types
+    and layouts before that;
+  * ``_chains`` places every variable in exactly one chain (the kernel
+    writes x through ``pos`` with no fill), as a prefix of its row;
+  * the kernels' arithmetic written out in NumPy (``_factor_mirror``,
+    ``_apply_mirror``: a chain's steps up to its last valid entry, padding
+    steps as identity steps, the in-place Gauss-Jordan inverse with
+    diagonal pivots, double arithmetic rounded at each store, y kept in the
+    output between the passes) within the rule the card holds the kernels
+    to (``tridiag.card_rule``): no further from the float64 plain version
+    than twice the plain float32 route, or 1e-6, block by block (a block's
+    error over its own size); and that rule fails a planted fault of that
+    arithmetic (the L·P term dropped, L transposed on one chain) on an
+    LT-SLAM-like system, where a rule scaled by the largest entry would
+    not.
+
+The kernels themselves need the card: ``tests/test_torch_card.py`` and
+``chip_smoke.py`` hold them to the plain versions there.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ltm.graph import build_graph_data as j_build
+from ltm.graph import solver as jsolver
+from ltm_torch.graph import solver as tsolver
+from ltm_torch.graph.factors import robust_weights, whitened_residuals
+from ltm_torch.kernels import tridiag
+from ltm_torch.slam.convert import graph_from_arrays, graph_to_arrays
+
+from test_solver_oracle import _exp_se3
+from test_torch_solver import _chain_graph
+
+torch.set_num_threads(1)
+
+LANES = [(), (3,), (2, 6)]
+DTYPES = [torch.float32, torch.float64]
+
+
+def _sessions_graph(seed, lengths, isolated=2):
+    """Sessions laid end to end, each an odometry chain whose first
+    variable is fixed, loop factors across them, and ``isolated`` variables
+    held by a prior alone (chains of one variable)."""
+    rng = np.random.default_rng(seed)
+    V = sum(lengths) + isolated
+    poses = [_exp_se3(rng.normal(scale=0.3, size=6)) for _ in range(V)]
+    fixed = np.zeros(V, bool)
+    betweens, priors = [], []
+    start = 0
+    for n in lengths:
+        fixed[start] = True
+        for i in range(start, start + n - 1):
+            betweens.append((i, i + 1, np.linalg.inv(poses[i]) @ poses[i + 1]
+                             @ _exp_se3(rng.normal(scale=0.01, size=6)), (1e-2,) * 6, False))
+        start += n
+    for _ in range(4):
+        i, j = rng.choice(sum(lengths), 2, replace=False)
+        if abs(int(i) - int(j)) > 1:
+            betweens.append((int(i), int(j), np.linalg.inv(poses[i]) @ poses[j], (0.5,) * 6, True))
+    for v in range(start, V):
+        priors.append((v, poses[v], (1e-2,) * 6))
+    init = [p @ _exp_se3(rng.normal(scale=0.02, size=6)) for p in poses]
+    return j_build(np.asarray(init, np.float32), fixed, priors=priors, betweens=betweens)
+
+
+def _single_graph():
+    """One variable, one prior: one chain of length 1."""
+    p = _exp_se3(np.full(6, 0.1))
+    return j_build(np.asarray([p], np.float32), np.zeros(1, bool), priors=[(0, p, (1e-2,) * 6)])
+
+
+GRAPHS = {"two_chains_cuts_loops": lambda: _chain_graph(),
+          "ragged_sessions": lambda: _sessions_graph(3, (12, 7, 1, 20)),
+          "one_variable": _single_graph}
+
+
+def _system(name, dtype):
+    """(graph, D, L, chains) of the preconditioner at the graph's initial
+    poses (float32, as LT-SLAM's graph), cast to ``dtype``."""
+    tg = graph_from_arrays(graph_to_arrays(GRAPHS[name]()), "cpu")
+    rp, rb, ra = whitened_residuals(tg.poses0, tg)
+    _, wb, wa = robust_weights(rp, rb, ra, tg)
+    D, L = tsolver._precond_blocks(tg.poses0, tg, wb, wa, torch.tensor(1e-3), tridiag=True)
+    return tg, D.to(dtype), L.to(dtype), tsolver._chains(tg)
+
+
+def _rhs(seed, lanes, V, dtype):
+    return torch.from_numpy(np.random.default_rng(seed).normal(size=lanes + (V, 6))).to(dtype)
+
+
+def _by_variable(blocks_chain, pos, V):
+    """Chain-major (n, len, ...) blocks back in variable order (V, ...)."""
+    p = pos.numpy()
+    out = np.zeros((V,) + blocks_chain.shape[2:], blocks_chain.dtype)
+    out[p[p < V]] = blocks_chain[p < V]
+    return out
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("lanes", LANES)
+@pytest.mark.parametrize("name", list(GRAPHS))
+def test_plain_matches_ltm(name, lanes, dtype):
+    tg, D, L, ch = _system(name, dtype)
+    V = tg.num_vars
+    Cinv, Lc = tridiag.tridiag_factor_plain(D, L, ch.pos)
+    r = _rhs(1, lanes, V, dtype)
+    x = tridiag.tridiag_apply_plain(Cinv, Lc, ch.pos, r).numpy()
+    assert x.shape == lanes + (V, 6) and Cinv.shape == ch.pos.shape + (6, 6)
+    with jax.enable_x64(dtype == torch.float64):
+        Cj = np.asarray(jax.jit(jsolver._tridiag_factor)(D.numpy(), L.numpy()))
+        apply = jax.jit(jax.vmap(jsolver._tridiag_apply, in_axes=(None, None, 0)))
+        xj = np.asarray(apply(jnp.asarray(Cj), L.numpy(), r.numpy().reshape(-1, V, 6)))
+    assert Cj.dtype == D.numpy().dtype
+    Cv = _by_variable(Cinv.numpy(), ch.pos, V)
+    np.testing.assert_allclose(Cv, Cj, rtol=1e-4, atol=1e-5 * np.abs(Cj).max())
+    np.testing.assert_allclose(x.reshape(-1, V, 6), xj, rtol=1e-4, atol=1e-5 * np.abs(xj).max())
+    assert np.array_equal(_by_variable(Lc.numpy(), ch.pos, V), L.numpy())
+    # past a chain's end: identity and zero
+    pad = (ch.pos >= V).numpy()
+    assert np.array_equal(Cinv.numpy()[pad], np.broadcast_to(np.eye(6), (pad.sum(), 6, 6)))
+    assert not Lc.numpy()[pad].any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", list(GRAPHS))
+def test_dispatch_gives_plain_bits_on_cpu(name, dtype):
+    tg, D, L, ch = _system(name, dtype)
+    r = _rhs(2, (4,), tg.num_vars, dtype)
+    Cinv, Lc = tsolver._tridiag_factor(D, L, ch)
+    Cp, Lp = tridiag.tridiag_factor_plain(D, L, ch.pos)
+    assert torch.equal(Cinv, Cp) and torch.equal(Lc, Lp)
+    assert torch.equal(tsolver._tridiag_apply(Cinv, Lc, ch, r),
+                       tridiag.tridiag_apply_plain(Cp, Lp, ch.pos, r))
+    launches = tridiag.tridiag_factor.launches, tridiag.tridiag_apply.launches
+    tsolver._preconditioner(D, L, ch)(r)
+    assert (tridiag.tridiag_factor.launches, tridiag.tridiag_apply.launches) == launches
+
+
+def test_kernel_wrappers_refuse():
+    tg, D, L, ch = _system("ragged_sessions", torch.float32)
+    Cinv, Lc = tridiag.tridiag_factor_plain(D, L, ch.pos)
+    r = _rhs(0, (), tg.num_vars, torch.float32)
+    launches = tridiag.tridiag_factor.launches, tridiag.tridiag_apply.launches
+    with pytest.raises(RuntimeError, match="CUDA kernel"):
+        tridiag.tridiag_factor(D, L, ch.pos)
+    with pytest.raises(RuntimeError, match="CUDA kernel"):
+        tridiag.tridiag_apply(Cinv, Lc, ch.pos, r)
+    bad_factor = [(D[:-1], L, ch.pos), (D, L[..., :5], ch.pos), (D.double(), L, ch.pos),
+                  (D.half(), L.half(), ch.pos), (D, L, ch.pos.int()), (D, L, ch.pos[0]),
+                  (D.transpose(-1, -2), L, ch.pos), (D, L, ch.pos.t())]
+    for args in bad_factor:
+        with pytest.raises(ValueError):
+            tridiag.tridiag_factor(*args)
+    bad_apply = [(Cinv, Lc, ch.pos, r[:, :5]), (Cinv, Lc, ch.pos, r.double()),
+                 (Cinv[:-1], Lc, ch.pos, r), (Cinv, Lc[:, :-1], ch.pos, r),
+                 (Cinv, Lc, ch.pos.int(), r), (Cinv, Lc, ch.pos, r[None].expand(2, -1, -1)),
+                 (Cinv, Lc, ch.pos, r[0])]
+    for args in bad_apply:
+        with pytest.raises(ValueError):
+            tridiag.tridiag_apply(*args)
+    assert (tridiag.tridiag_factor.launches, tridiag.tridiag_apply.launches) == launches
+
+
+@pytest.mark.parametrize("name", list(GRAPHS))
+def test_chains_cover_every_variable_once(name):
+    tg, _, _, ch = _system(name, torch.float32)
+    pos, V = ch.pos.numpy(), tg.num_vars
+    assert pos.dtype == np.int64 and pos.min() >= 0 and pos.max() <= V
+    valid = pos < V
+    assert np.array_equal(np.sort(pos[valid]), np.arange(V))
+    assert np.all(valid[:, :-1] >= valid[:, 1:])               # each chain a prefix of its row
+    assert valid[:, 0].all() and valid.sum(1).max() == pos.shape[1]
+
+
+# ---- the kernels' arithmetic, in NumPy -------------------------------------------
+
+def _chain_len(p, V):
+    valid = np.flatnonzero((p >= 0) & (p < V))
+    return int(valid[-1]) + 1 if len(valid) else 0
+
+
+def _gauss_jordan(C):
+    """``csrc/tridiag.cu``'s in-place inverse: pivots on the diagonal, each
+    step from the previous step's entries."""
+    a = C.copy()
+    for q in range(6):
+        ip = 1.0 / a[q, q]
+        b = a.copy()
+        for i in range(6):
+            for j in range(6):
+                if i == q and j == q:
+                    b[i, j] = ip
+                elif i == q:
+                    b[i, j] = a[i, j] * ip
+                elif j == q:
+                    b[i, j] = -a[i, j] * ip
+                else:
+                    b[i, j] = a[i, j] - a[i, q] * ip * a[q, j]
+        a = b
+    return a
+
+
+def _factor_mirror(D, L, pos):
+    V, (n, max_len) = D.shape[0], pos.shape
+    Cinv = np.broadcast_to(np.eye(6), (n, max_len, 6, 6)).astype(D.dtype)
+    Lc = np.zeros((n, max_len, 6, 6), D.dtype)
+    for c in range(n):
+        prev = np.eye(6)
+        for i in range(_chain_len(pos[c], V)):
+            v = pos[c, i]
+            d, l = (D[v], L[v]) if 0 <= v < V else (np.eye(6, dtype=D.dtype), np.zeros((6, 6), D.dtype))
+            Lc[c, i] = l
+            l = l.astype(np.float64)
+            prev = _gauss_jordan(d - l @ (prev @ l.T))
+            Cinv[c, i] = prev
+    return Cinv, Lc
+
+
+def _apply_mirror(Cinv, Lc, pos, r):
+    V, (n, max_len) = r.shape[-2], pos.shape
+    x = np.full(r.shape, np.nan, r.dtype)
+    for lane in np.ndindex(r.shape[:-2]):
+        rl, xl = r[lane], x[lane]
+        for c in range(n):
+            steps = _chain_len(pos[c], V)
+            u = np.zeros(6)
+            for i in range(steps):
+                v = pos[c, i]
+                y = (rl[v] if 0 <= v < V else 0.0) - Lc[c, i] @ u
+                u = Cinv[c, i].astype(np.float64) @ y
+                if 0 <= v < V:
+                    xl[v] = y                                   # y in the output, rounded
+            xn = np.zeros(6)
+            for i in range(steps - 1, -1, -1):
+                v = pos[c, i]
+                Lt = Lc[c, i + 1].T if i + 1 < steps else np.zeros((6, 6))
+                t = (xl[v].astype(np.float64) if 0 <= v < V else 0.0) - Lt @ xn
+                xn = Cinv[c, i].astype(np.float64) @ t
+                if 0 <= v < V:
+                    xl[v] = xn
+    return x
+
+
+def _factor_out(*args):
+    return tridiag.tridiag_factor_plain(*args)[0]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("lanes", [(), (3,)])
+@pytest.mark.parametrize("name", list(GRAPHS))
+def test_kernel_arithmetic_within_the_card_rule(name, lanes, dtype):
+    tg, D, L, ch = _system(name, dtype)
+    V = tg.num_vars
+    r = _rhs(4, lanes, V, dtype)
+    L32 = tridiag.tridiag_factor_plain(D.float(), L.float(), ch.pos)[1]
+    Cm, Lm = _factor_mirror(D.numpy(), L.numpy(), ch.pos.numpy())
+    assert np.array_equal(Lm, L32.numpy().astype(Lm.dtype))
+    tridiag.card_rule(torch.from_numpy(Cm), _factor_out, (D, L, ch.pos), 2)   # raises past it
+
+    Cin, Lin = torch.from_numpy(Cm), torch.from_numpy(Lm)
+    xm = _apply_mirror(Cm, Lm, ch.pos.numpy(), r.numpy())
+    assert not np.isnan(xm).any()
+    tridiag.card_rule(torch.from_numpy(xm), tridiag.tridiag_apply_plain, (Cin, Lin, ch.pos, r), 1)
+
+
+def _slam_like_system():
+    """LT-SLAM's chain layout cut to 200 variables (two long chains, the
+    rest chains of one), float32: the long chains' blocks an odometry
+    information's size (Cinv up to ~1), the chains of one an unused node
+    slot's ``λ·I`` (Cinv ~1e7), so the largest entry of Cinv is a decade
+    count above every entry of the long chains."""
+    lengths = (1, 1, 1, 80) + (1,) * 12 + (1, 80) + (1,) * 12
+    D, L, pos = tridiag.random_chain_system(np.random.default_rng(13), lengths, torch.float64,
+                                            "cpu")
+    one = torch.from_numpy(np.repeat(np.asarray(lengths), lengths) == 1)
+    D[~one], L[~one] = D[~one] * 1e4, L[~one] * 1e4
+    D[one] = 1.3e-7 * torch.eye(6, dtype=D.dtype)
+    return D.float(), L.float(), pos
+
+
+def _transposed_on_chain(blocks, rows):
+    out = blocks.copy()
+    out[rows] = np.swapaxes(out[rows], -1, -2)
+    return out
+
+
+@pytest.mark.parametrize("fault", ["factor_drops_L_P", "factor_transposes_L_on_a_chain",
+                                   "apply_transposes_L_on_a_chain"])
+def test_card_rule_catches_a_wrong_sweep(fault):
+    """The rule, block by block, fails a planted fault of the kernels'
+    arithmetic (in the NumPy mirror) on an LT-SLAM-like system, where a
+    rule scaled by the largest entry (the unused slots' ``1/λ``) would pass
+    it; the unbroken mirror passes."""
+    D, L, pos = _slam_like_system()
+    p, V = pos.numpy(), D.shape[0]
+    long_chain = p[np.argmax((p < V).sum(1))]
+    long_vars = long_chain[long_chain < V]
+    Cm, Lm = _factor_mirror(D.numpy(), L.numpy(), p)
+    r = _rhs(6, (2,), V, torch.float32)
+    if fault.startswith("factor"):
+        Lbad = np.zeros_like(L.numpy()) if fault == "factor_drops_L_P" else \
+            _transposed_on_chain(L.numpy(), long_vars)
+        good, bad = Cm, _factor_mirror(D.numpy(), Lbad, p)[0]
+        plain, inputs, block_dims = _factor_out, (D, L, pos), 2
+    else:
+        Lc_bad = _transposed_on_chain(Lm, (np.argmax((p < V).sum(1)),))
+        good, bad = _apply_mirror(Cm, Lm, p, r.numpy()), _apply_mirror(Cm, Lc_bad, p, r.numpy())
+        plain, inputs, block_dims = (tridiag.tridiag_apply_plain,
+                                     (torch.from_numpy(Cm), torch.from_numpy(Lm), pos, r), 1)
+    tridiag.card_rule(torch.from_numpy(good), plain, inputs, block_dims)
+    with pytest.raises(AssertionError, match="relative error"):
+        tridiag.card_rule(torch.from_numpy(bad), plain, inputs, block_dims)
+    # a rule scaled by the largest entry of the reference passes the fault
+    ref = plain(*(x.double() if x.is_floating_point() else x for x in inputs)).numpy()
+    p32 = plain(*(x.float() if x.is_floating_point() else x for x in inputs)).numpy()
+    scale = np.abs(ref).max()
+    assert np.abs(bad - ref).max() / scale <= max(2 * np.abs(p32 - ref).max() / scale, 1e-6)
+
+
+def test_kernel_arithmetic_padding_steps():
+    """A padding entry inside a chain and a row of padding only: identity
+    steps and no writes, as the plain versions' padded gathers give."""
+    tg, D, L, ch = _system("ragged_sessions", torch.float64)
+    V = tg.num_vars
+    pos = ch.pos.numpy()
+    holed = np.concatenate([pos[:, :1], np.full((pos.shape[0], 1), V), pos[:, 1:]], 1)
+    holed = np.concatenate([holed, np.full((1, holed.shape[1]), V)])      # a row of padding
+    hp = torch.from_numpy(holed)
+    Cref, Lref = tridiag.tridiag_factor_plain(D, L, hp)
+    Cm, Lm = _factor_mirror(D.numpy(), L.numpy(), holed)
+    np.testing.assert_allclose(Cm, Cref.numpy(), rtol=1e-9, atol=1e-12 * np.abs(Cm).max())
+    assert np.array_equal(Lm, Lref.numpy())
+    r = _rhs(5, (2,), V, torch.float64)
+    xref = tridiag.tridiag_apply_plain(Cref, Lref, hp, r).numpy()
+    np.testing.assert_allclose(_apply_mirror(Cm, Lm, holed, r.numpy()), xref, rtol=1e-9,
+                               atol=1e-12 * np.abs(xref).max())
