@@ -39,19 +39,23 @@ sm_90a), then runs fourteen phases, each of which raises on failure:
      allocated); the solver's fixed-order scatter-sum
      (``csrc/scatter.cu``) on a pose graph's shape, rows of 1 to 70
      elements, bit-equal to its plain version; K5b, the ICP 1-NN
-     (``csrc/nn_argmin.cu``), on nine cases against
+     (``csrc/nn_argmin.cu``), on ten cases against
      ``nn_sqdist_argmin_plain`` (indices equal except at counted
      near-ties, distances bit-equal where they agree, a lane alone equal
-     to the same lane in its batch; duplicated targets, a lane without a
-     valid target, a split boundary, the farm's largest shape, timed);
+     to the same lane in its batch, the scan's own counts of tiles scored
+     and culled; duplicated targets, a lane without a valid target, a
+     split boundary, the farm's largest shape on a random cloud and in the
+     farm's voxel point order, both timed, with 1, 2, 4 and 8 splits);
      K5a, the solver's block-tridiagonal factor and solve
      (``csrc/tridiag.cu``), on random SPD systems on LTSlam's chain layout
      at phase 8's width and on ragged chains, float32 and float64, with no
-     lane, 4 and 120 lanes (the marginals' shape, timed): each launched
-     twice (the same bits), captured in a CUDA graph (the eager bits), and
-     no further from the float64 plain version than twice the plain float32
-     route, or 1e-6, both measured block by block (a block's error over its
-     own size: ``kernels.tridiag.card_rule``, through ``tridiag_rule``);
+     lane, 4 and 120 lanes (the marginals' shape, timed, beside the
+     register-only dependent-step floor): each launched twice (the same
+     bits), captured in a CUDA graph (the eager bits), and the factor's
+     Cinv and P and the solve no further from the float64 plain version
+     than twice the plain float32 route, or 1e-6, both measured block by
+     block (a block's error over its own size: ``kernels.tridiag.card_rule``,
+     through ``tridiag_rule``);
   3. card vs CPU: ``Removerter.run`` on a small synthetic survey on the CPU
      (plain versions) and on the card (kernels); the 14 named point sets
      agree within max(2, 1e-4·|set|) points;
@@ -91,16 +95,19 @@ sm_90a), then runs fourteen phases, each of which raises on failure:
      1-NN call (K5b) against the plain version, its bound and
      ``torch.cdist``, one run with 10 RS loops (ATE ≤ 0.10 m) and one at
      ``odom_noise=4e-3`` (ATE ≤ 0.25 m); every 1-NN call of the warm-up
-     run is held to the plain version as it happens (``NnFarmCheck``),
-     K5b must launch once a 1-NN call, LT-SLAM's peak memory is recorded;
+     run is held to the plain version as it happens (``NnFarmCheck``, with
+     the scan's counts of tiles scored and culled), K5b must launch once a
+     1-NN call, LT-SLAM's peak memory is recorded;
      the scatter-sum kernel must launch, and its largest calls of the
      warm-up run are held to the plain version and timed against their
      bound and ``index_add_``, wrapper and device time; every eager call of
      the tridiagonal factor and solve (K5a) in the warm-up run is held to
      its plain version under phase 2's rule (``TridiagCheck``), K5a must
-     launch once a call of each, its largest calls are timed (one call, a
-     call in a CUDA graph, the plain version, the bound, the longest chain,
-     the device ms a dependent step), a graph-replayed PCG iteration is
+     launch once a call of each, the solve's runs are counted with the
+     PCG's graph replays, its largest calls are timed (one call, a call in
+     a CUDA graph, the plain version, the bound, the longest chain, the
+     device ms a dependent step and the register-only floor), a
+     graph-replayed PCG iteration is
      profiled by kernel with K5a and with the plain sweeps, and one run with
      the plain sweeps gives the wall and the solver's stages beside the
      timed run's;
@@ -596,7 +603,7 @@ def phase_build():
     log(f"[1] kernels built in {time.perf_counter() - t0:.2f} s: {sorted(logs) or 'cached'}")
     for name, text in logs.items():
         log(f"[1] nvcc {name}.cu:\n{text.strip()}")
-    for lib, kernel in (("knn2", "knn2_scan"), ("nn_argmin", "nn_scan")):
+    for lib, kernel in (("knn2", "knn2_scan"), ("nn_argmin", "nn_scanILb0E")):
         log(f"[1] {kernel} hot block (cuobjdump -sass): "
             f"{json.dumps(sass_hot_blocks(_build._lib_path(lib), kernel))}")
     log(f"[1] native/libltm_native.so loaded: {native.available()}"
@@ -1030,6 +1037,30 @@ def nn_diff(got, want, args):
     return n_apart, bits, err
 
 
+def nn_work(args, got=None):
+    """The scan's own counts of its work on one call of K5b
+    (``nn_argmin_select(..., counts=)``): tiles its warps considered,
+    scored and culled, the update branches they took, and the cull's share
+    of the tiles.  The counted launch must give ``got``'s bits; the launch
+    counts are restored."""
+    import torch
+
+    from ltm_torch.kernels.nn_argmin import nn_argmin_select
+
+    counts = torch.zeros(4, dtype=torch.int64, device=args[0].device)
+    saved = nn_counts()
+    try:
+        out = nn_argmin_select(*args[:4], counts=counts)
+    finally:
+        set_nn_counts(saved)
+    if got is not None and not (torch.equal(out[0], got[0]) and torch.equal(out[1], got[1])):
+        raise AssertionError("K5b: the counted scan gave other bits than the call")
+    considered, scored, culled, branches = (int(v) for v in counts.cpu())
+    return {"tiles_considered": considered, "tiles_scored": scored, "tiles_culled": culled,
+            "update_branches": branches,
+            "cull_share": culled / considered if considered else "not measured"}
+
+
 def nn_lane_alone(args, kwargs, got, lanes):
     """Each lane of ``lanes`` through the kernel in a batch of its own: the
     bits of its row of ``got`` (the batch's result); entries that differ."""
@@ -1050,8 +1081,10 @@ def compare_nn(name, args, kwargs=None, timed=False):
     wrapper's ms (CUDA events, median of 5), its kernels' device time
     (``device_profile``), the ms with the plan held at one split, the plain
     version's ms (once), ``torch.cdist`` + ``min`` (4 lanes a call), and
-    the bound (8 FP32 flops a valid pair, or the bytes).  The launch counts
-    are restored."""
+    the bound: 8 FP32 flops a pair of the tiles the scan scored (its own
+    count, ``nn_work``: the work this call's data needed past the cull), or
+    the bytes; over every valid pair beside it.  The launch counts are
+    restored."""
     import torch
 
     from ltm_torch.kernels import nn_argmin
@@ -1078,8 +1111,17 @@ def compare_nn(name, args, kwargs=None, timed=False):
         st = {"case": name, "shape": [lanes, q.shape[-2], t.shape[-2]], "splits": splits,
               "near_ties": apart, "differ_where_indices_agree": bits, "repeat_differ": repeat,
               "lane_alone_differ": alone, "max_abs_err": err}
+        st["work"] = nn_work(args, got)
         if timed:
             st.update(nn_timing(args, kwargs))
+            # the work this call's data needed: the pairs of the tiles its warps
+            # scored (a tile of 256 targets against a warp's 128 query slots),
+            # at most the valid pairs
+            scored = 256.0 * 128.0 * st["work"]["tiles_scored"]
+            flops_ms = 8 * min(scored, st["valid_pairs"]) / H100_FP32_FLOPS * 1e3
+            st.update(all_pairs_bound_ms=st["bound_ms"], all_pairs_bound_by=st["bound_by"],
+                      scored_pairs=scored, bound_ms=max(flops_ms, st["bytes_ms"]),
+                      bound_by="operations" if flops_ms >= st["bytes_ms"] else "bytes")
     finally:
         set_nn_counts(saved)
     return st
@@ -1106,14 +1148,23 @@ def nn_timing(args, kwargs):
     def calls():
         for _ in range(profiled):
             nn_sqdist_argmin(*args, **kwargs)
-    prof = device_profile(calls)
-    st["device_ms"] = {k: v / profiled for k, v in prof["top_device_ms"].items() if "nn_" in k}
+    for _ in range(3):   # a profile at times holds none of the calls' kernels
+        prof = device_profile(calls)
+        st["device_ms"] = {k: v / profiled for k, v in prof["top_device_ms"].items()
+                           if "nn_" in k}
+        if st["device_ms"]:
+            break
     plan = nn_argmin._plan
-    nn_argmin._plan = lambda *a: 1
+    st["split_sweep_ms"] = {}
     try:
-        st["unsplit_ms"] = cuda_ms(lambda: nn_sqdist_argmin(*args, **kwargs), reps=3)
+        for splits in (1, 2, 4, 8):
+            nn_argmin._plan = lambda lanes, n, m, *rest, s=splits: max(
+                s, -(-m // (nn_argmin._TILE * nn_argmin._MAX_TILES)))
+            st["split_sweep_ms"][splits] = cuda_ms(lambda: nn_sqdist_argmin(*args, **kwargs),
+                                                   reps=3)
     finally:
         nn_argmin._plan = plan
+    st["unsplit_ms"] = st["split_sweep_ms"][1]
     st["plain_ms"] = cuda_ms(lambda: nn_sqdist_argmin_plain(*args, **kwargs), reps=1)
     q3, t3 = (q, t) if q.dim() > 2 else (q[None], t[None])
 
@@ -1126,9 +1177,34 @@ def nn_timing(args, kwargs):
     flops_ms = 8 * pairs / H100_FP32_FLOPS * 1e3
     nbytes = q.numel() * 4 + qm.numel() + t.numel() * 4 + tm.numel() + qm.numel() * 12
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-    st.update(valid_pairs=pairs, bound_ms=max(flops_ms, bytes_ms),
+    st.update(valid_pairs=pairs, bound_ms=max(flops_ms, bytes_ms), bytes_ms=bytes_ms,
               bound_by="operations" if flops_ms >= bytes_ms else "bytes")
     return st
+
+
+def sorted_farm(arrays, voxel=0.3, yaw_deg=8.0, seed=31):
+    """The farm's point order on a cloud: targets and queries each sorted by
+    their voxel key, x first (as the submap and the source scan come from
+    ``voxel_downsample_representative_capped``), the queries then turned by
+    ``yaw_deg`` about the lanes' centre (an ICP pose estimate's yaw)."""
+    q, qm, t, tm = arrays
+    rng = np.random.default_rng(seed)
+
+    def key_order(p):
+        v = np.floor(p / voxel).astype(np.int64)
+        return np.lexsort((v[..., 2], v[..., 1], v[..., 0]))
+
+    for b in range(q.shape[0]):
+        o = key_order(t[b])
+        t[b], tm[b] = t[b, o], tm[b, o]
+        o = key_order(q[b])
+        q[b], qm[b] = q[b, o], qm[b, o]
+    a = np.deg2rad(yaw_deg) * rng.uniform(-1, 1, q.shape[0])
+    c = q.mean(1, keepdims=True)
+    x, y = q[..., 0] - c[..., 0], q[..., 1] - c[..., 1]
+    q[..., 0] = c[..., 0] + np.cos(a)[:, None] * x - np.sin(a)[:, None] * y
+    q[..., 1] = c[..., 1] + np.sin(a)[:, None] * x + np.cos(a)[:, None] * y
+    return q, qm, t, tm
 
 
 def nn_cases(dev):
@@ -1137,7 +1213,8 @@ def nn_cases(dev):
     duplicated targets (the lowest index must win), a lane without a valid
     target (index 0, 1e30), no valid query, the nearest target duplicated
     across a target-split boundary, ragged sizes, one lane without a lane
-    axis, and the ICP farm's largest shape (32 lanes x 4 096 x 32 768),
+    axis, and the ICP farm's largest shape (32 lanes x 4 096 x 32 768) on a
+    random cloud and in the farm's voxel order (``sorted_farm``), both
     timed."""
     import torch
 
@@ -1172,10 +1249,11 @@ def nn_cases(dev):
     q, qm, t, tm = cloud(1, 2000, 5000)
     cases.append(("no_lane_axis", (q[0], qm[0], t[0], tm[0])))
     cases.append(("farm_largest", cloud(32, 4096, 32768, 50.0, 60.0)))
+    cases.append(("farm_sorted", sorted_farm(cloud(32, 4096, 32768, 50.0, 60.0))))
     out = []
     for name, arrays in cases:
         args = on_card(*arrays)
-        st = compare_nn(name, args, {"tile": 4096}, timed=name == "farm_largest")
+        st = compare_nn(name, args, {"tile": 4096}, timed=name.startswith("farm_"))
         got_d, got_i = (x.cpu().numpy() for x in nn_sqdist_argmin(*args, tile=4096))
         if name == "duplicates" and (np.any(got_i % 2) or st["near_ties"]):
             raise AssertionError("duplicated targets: the lowest index must win")
@@ -1206,13 +1284,19 @@ def tridiag_rule(got, plain, inputs):
     limit."""
     from ltm_torch.kernels.tridiag import card_rule
 
-    return card_rule(got, plain, inputs, 2 if plain is factor_out else 1)
+    return card_rule(got, plain, inputs, 2 if plain in (factor_out, factor_p) else 1)
 
 
 def factor_out(D, L, pos):
     from ltm_torch.kernels.tridiag import tridiag_factor_plain
 
     return tridiag_factor_plain(D, L, pos)[0]
+
+
+def factor_p(D, L, pos):
+    from ltm_torch.kernels.tridiag import tridiag_factor_plain
+
+    return tridiag_factor_plain(D, L, pos)[2]
 
 
 def apply_out(Cinv, Lc, pos, r):
@@ -1271,14 +1355,18 @@ def tridiag_bound(which, args):
 def compare_tridiag(name, D, L, pos, r, timed=False):
     """K5a on one system: the factor and the solve through their kernels,
     each launched twice (the same bits), captured in a CUDA graph (the
-    eager bits), held to the plain version under ``tridiag_rule``, the
-    kernel's ``Lc`` bit-equal to the plain gather.  With ``timed``, for
-    each: ms by CUDA events (median of 5), a call's ms in a CUDA graph
-    (``graph_replay_ms``: 50 calls; the plain version's, whose graph is
-    thousands of nodes a call, 2 calls), the plain version's ms (once), the
-    throughput bound, the longest chain and the device ms a dependent step
-    (graph ms over max_len, or 2 max_len for the solve).  The launch counts
-    are restored."""
+    eager bits), held to the plain version under ``tridiag_rule`` (the
+    factor's ``Cinv`` and ``P``; the solve, which reads ``Cinv`` and ``P``,
+    against the plain solve on ``Cinv`` and ``Lc``), the kernel's ``Lc``
+    bit-equal to the plain gather.  With ``timed``, for each: ms by CUDA
+    events (median of 5), a call's ms in a CUDA graph (``graph_replay_ms``:
+    50 calls; the plain version's, whose graph is thousands of nodes a
+    call, 2 calls), the plain version's ms (once), the throughput bound,
+    the longest chain, the device ms a dependent step (graph ms over
+    max_len, or 2 max_len for the solve) and, for the solve, the
+    dependent-step floor: its steps at the ms a step of the same
+    recurrence with every operand in registers (``step_floor_ms``).  The
+    launch counts are restored."""
     import torch
 
     from ltm_torch.kernels.tridiag import (tridiag_apply, tridiag_apply_plain, tridiag_factor,
@@ -1286,44 +1374,61 @@ def compare_tridiag(name, D, L, pos, r, timed=False):
 
     saved = tridiag_counts()
     try:
-        Cinv, Lc = tridiag_factor(D, L, pos)
-        C2, L2 = tridiag_factor(D, L, pos)
-        x = tridiag_apply(Cinv, Lc, pos, r)
-        x2 = tridiag_apply(Cinv, Lc, pos, r)
-        Cg, Lg, xg = captured(lambda: (*tridiag_factor(D, L, pos), tridiag_apply(Cinv, Lc, pos, r)))
-        repeat = int((C2 != Cinv).sum() + (L2 != Lc).sum() + (x2 != x).sum())
-        graph = int((Cg != Cinv).sum() + (Lg != Lc).sum() + (xg != x).sum())
+        Cinv, Lc, P = tridiag_factor(D, L, pos)
+        C2, L2, P2 = tridiag_factor(D, L, pos)
+        x = tridiag_apply(Cinv, P, pos, r)
+        x2 = tridiag_apply(Cinv, P, pos, r)
+        Cg, Lg, Pg, xg = captured(lambda: (*tridiag_factor(D, L, pos),
+                                           tridiag_apply(Cinv, P, pos, r)))
+        repeat = int((C2 != Cinv).sum() + (L2 != Lc).sum() + (P2 != P).sum() + (x2 != x).sum())
+        graph = int((Cg != Cinv).sum() + (Lg != Lc).sum() + (Pg != P).sum() + (xg != x).sum())
         lc_differ = int((Lc != tridiag_factor_plain(D, L, pos)[1]).sum())
         if repeat or graph or lc_differ:
             raise AssertionError(f"K5a {name}: {repeat} entries apart between launches, {graph} "
                                  f"between a captured and an eager call, {lc_differ} in Lc")
         V = D.shape[0]
         f_rel, f_plain, f_abs = tridiag_rule(Cinv, factor_out, (D, L, pos))
+        p_rel, p_plain, _ = tridiag_rule(P, factor_p, (D, L, pos))
         a_rel, a_plain, a_abs = tridiag_rule(x, apply_out, (Cinv, Lc, pos, r))
         steps = int((pos < V).sum(1).max())        # the longest chain
         st = {"case": name, "dtype": str(D.dtype).split(".")[-1], "variables": V,
               "n_chains": pos.shape[0], "max_len": steps, "lanes": list(r.shape[:-2]),
-              "factor": {"max_rel_err": f_rel, "plain_f32_rel_err": f_plain, "max_abs_err": f_abs},
+              "factor": {"max_rel_err": f_rel, "plain_f32_rel_err": f_plain, "max_abs_err": f_abs,
+                         "P_max_rel_err": p_rel, "P_plain_f32_rel_err": p_plain},
               "apply": {"max_rel_err": a_rel, "plain_f32_rel_err": a_plain, "max_abs_err": a_abs},
               "repeat_differ": repeat, "captured_differ": graph}
         if timed:
-            calls = {"factor": ((D, L, pos), tridiag_factor, tridiag_factor_plain, steps),
-                     "apply": ((Cinv, Lc, pos, r), tridiag_apply, tridiag_apply_plain, 2 * steps)}
-            for which, (args, kernel, plain, dependent) in calls.items():
+            calls = {"factor": ((D, L, pos), (D, L, pos), tridiag_factor, tridiag_factor_plain,
+                                steps),
+                     "apply": ((Cinv, P, pos, r), (Cinv, Lc, pos, r), tridiag_apply,
+                               tridiag_apply_plain, 2 * steps)}
+            for which, (args, plain_args, kernel, plain, dependent) in calls.items():
                 graph_ms = graph_replay_ms(lambda: kernel(*args))
-                bound_ms, bound_by = tridiag_bound(which, args)
+                bound_ms, bound_by = tridiag_bound(which, plain_args)
                 st[which].update(
                     ms=cuda_ms(lambda: kernel(*args), reps=5),
                     graph_replay_ms=graph_ms,
-                    plain_ms=cuda_ms(lambda: plain(*args), reps=1),
-                    plain_graph_replay_ms=graph_replay_ms(lambda: plain(*args), calls=2,
+                    plain_ms=cuda_ms(lambda: plain(*plain_args), reps=1),
+                    plain_graph_replay_ms=graph_replay_ms(lambda: plain(*plain_args), calls=2,
                                                           reps=1),
                     bound_ms=bound_ms, bound_by=bound_by, dependent_steps=dependent,
                     ms_per_dependent_step=graph_ms / dependent)
+            floor = step_floor()
+            st["apply"].update(step_floor_ms=floor,
+                               dependent_step_floor_ms=floor * 2 * steps)
             torch.cuda.synchronize()
     finally:
         set_tridiag_counts(saved)
     return st
+
+
+def step_floor(steps=100_000):
+    """ms a dependent step of the solve's recurrence with every operand in
+    registers (``kernels.tridiag.step_floor_ms``: one launch of ``steps``
+    steps, the median of 3)."""
+    from ltm_torch.kernels.tridiag import step_floor_ms
+
+    return statistics.median(step_floor_ms(steps, "cuda") for _ in range(3)) / steps
 
 
 def tridiag_cases(dev):
@@ -1373,7 +1478,8 @@ class TridiagCheck:
         self.largest = {}
         self.layout = None
         solver._tridiag_factor = lambda D, L, ch: self._checked("factor", (D, L, ch))
-        solver._tridiag_apply = lambda Cinv, Lc, ch, r: self._checked("apply", (Cinv, Lc, ch, r))
+        solver._tridiag_apply = lambda Cinv, Lc, P, ch, r: self._checked("apply",
+                                                                          (Cinv, Lc, P, ch, r))
 
     def _checked(self, which, args):
         import torch
@@ -1386,8 +1492,8 @@ class TridiagCheck:
         if torch.cuda.is_current_stream_capturing():
             st["captured"] += 1
             return out
-        pos = args[2].pos
-        plain_args = (*args[:2], pos, *args[3:])
+        pos = args[-2].pos if which == "apply" else args[2].pos
+        plain_args = (args[0], args[1], pos, args[4]) if which == "apply" else (*args[:2], pos)
         got = out[0] if which == "factor" else out
         rel, plain_rel, abs_err = tridiag_rule(got, factor_out if which == "factor" else apply_out,
                                                plain_args)
@@ -1401,7 +1507,7 @@ class TridiagCheck:
         if which not in self.largest or size > self.largest[which][-1].numel():
             self.largest[which] = tuple(a.clone() for a in plain_args)
         if self.layout is None:
-            lengths = (pos < args[0].shape[0] if which == "factor" else pos < args[3].shape[-2])
+            lengths = pos < (args[0].shape[0] if which == "factor" else plain_args[3].shape[-2])
             lengths = lengths.sum(1).cpu().numpy()
             self.layout = {"n_chains": int(pos.shape[0]), "max_len": int(pos.shape[1]),
                            "variables": int(lengths.sum()),
@@ -1424,7 +1530,7 @@ def plain_sweeps():
 
     saved = solver._tridiag_factor, solver._tridiag_apply
     solver._tridiag_factor = lambda D, L, ch: tridiag_factor_plain(D, L, ch.pos)
-    solver._tridiag_apply = lambda Cinv, Lc, ch, r: tridiag_apply_plain(Cinv, Lc, ch.pos, r)
+    solver._tridiag_apply = lambda Cinv, Lc, P, ch, r: tridiag_apply_plain(Cinv, Lc, ch.pos, r)
     try:
         yield
     finally:
@@ -2502,6 +2608,7 @@ class HotLoops:
 
         self.timed = timed
         self.calls = {name: 0 for name, _, _ in self.TARGETS}
+        self.captured = {name: 0 for name, _, _ in self.TARGETS}   # inside a graph's capture
         self.seconds = {name: 0.0 for name, _, _ in self.TARGETS}
         self.bound_s = {name: 0.0 for name, _, _ in self.TARGETS}
         self.largest_1nn = None
@@ -2523,7 +2630,9 @@ class HotLoops:
                                       > self.largest_1nn[0][0].numel()
                                       * self.largest_1nn[0][2].shape[-2]):
                 self.largest_1nn = (args, kwargs)
-            if not self.timed or torch.cuda.is_current_stream_capturing():
+            capturing = torch.cuda.is_current_stream_capturing()
+            self.captured[name] += capturing
+            if not self.timed or capturing:
                 return fn(*args, **kwargs)       # a captured call runs in the graph's replays
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2555,9 +2664,10 @@ def hot_loop_bound_s(name, args) -> float:
         xyz, mask = args[0], args[1]
         ops = 0.0
         nbytes = xyz.numel() * 4 + mask.numel() + xyz.shape[0] * 20 * 60 * 4
-    else:                                              # the sweeps: (D, L, chains), (Cinv, Lc, chains, r)
-        which = "factor" if name == "tridiag_factor" else "apply"
-        return tridiag_bound(which, (*args[:2], args[2].pos, *args[3:]))[0] / 1e3
+    elif name == "tridiag_factor":                     # (D, L, chains)
+        return tridiag_bound("factor", (*args[:2], args[2].pos))[0] / 1e3
+    else:                                              # (Cinv, Lc, P, chains, r)
+        return tridiag_bound("apply", (args[0], args[1], args[3].pos, args[4]))[0] / 1e3
     return max(ops / H100_FP32_FLOPS, nbytes / H100_BYTES_PER_S)
 
 
@@ -2567,8 +2677,9 @@ class NnFarmCheck:
     same inputs as it happens (``nn_diff``: indices equal except at counted
     near-ties, distances bit-equal where they agree), and the first and
     last lane of each call alone to the same lane in its batch
-    (``nn_lane_alone``).  The comparison launches leave the counts as they
-    were."""
+    (``nn_lane_alone``), and counts the scan's work a call (``nn_work``:
+    tiles scored and culled, update branches).  The comparison launches
+    leave the counts as they were."""
 
     def __init__(self):
         import importlib
@@ -2578,7 +2689,8 @@ class NnFarmCheck:
         self.stats = {"calls": 0, "lanes_checked_alone": 0, "near_ties": 0,
                       "max_near_ties_a_call": 0, "differ_where_indices_agree": 0,
                       "lane_alone_differ": 0, "queries_compared": 0, "max_abs_err": 0.0,
-                      "shapes": {}}
+                      "shapes": {}, "tiles_considered": 0, "tiles_scored": 0,
+                      "tiles_culled": 0, "update_branches": 0, "min_cull_share": 1.0}
         self.mod.nn_sqdist_argmin = self._checked
 
     def _checked(self, *args, **kwargs):
@@ -2590,9 +2702,15 @@ class NnFarmCheck:
             apart, bits, err = nn_diff(got, nn_sqdist_argmin_plain(*args, **kwargs), args)
             lanes = sorted({0, args[0].shape[0] - 1})
             alone = nn_lane_alone(args, kwargs, got, lanes)
+            work = nn_work(args, got)
         finally:
             set_nn_counts(saved)
         st = self.stats
+        for k in ("tiles_considered", "tiles_scored", "tiles_culled", "update_branches"):
+            st[k] += work[k]
+        if work["tiles_considered"]:
+            st["min_cull_share"] = min(st["min_cull_share"], work["cull_share"])
+        st["cull_share"] = st["tiles_culled"] / max(st["tiles_considered"], 1)
         st["calls"] += 1
         st["lanes_checked_alone"] += len(lanes)
         st["near_ties"] += apart
@@ -2695,6 +2813,13 @@ def phase_slam_full_width():
         st["scatter_launches"] = fixed_order_sum.launches
         st["nn_launches"], st["nn_merges"] = nn_counts()
         st["tridiag_launches"] = dict(zip(("factor", "apply"), tridiag_counts()))
+        # the solve runs once more in each replay of a PCG's graph, uncounted:
+        # a PCG reads the host once, then once an iteration (its first eager)
+        replays = st["host_reads"]["pcg"] - 2 * st["tridiag_launches"]["factor"]
+        st["tridiag_apply_runs"] = {
+            "eager_launches": st["tridiag_launches"]["apply"],
+            "captured": hot.captured["tridiag_apply"], "pcg_replays": replays,
+            "executions": st["tridiag_launches"]["apply"] - hot.captured["tridiag_apply"] + replays}
         if fixed_order_sum.launches <= 0:
             raise AssertionError("LT-SLAM launched no fixed-order scatter-sum")
         if st["nn_launches"] != st["hot_loop_calls"]["icp_1nn"]:
@@ -2800,6 +2925,7 @@ def phase_slam_full_width():
         "max_memory_allocated_bytes": peak,
         "tridiag_launches_per_run": {w: [r["tridiag_launches"][w] for r in timed]
                                      for w in ("factor", "apply")},
+        "tridiag_apply_runs": timed[-1]["tridiag_apply_runs"],
         "tridiag_check": runs[0]["tridiag_check"],
         "tridiag_layout": runs[0]["tridiag_layout"],
         "tridiag_largest_call": tridiag_largest,
@@ -4655,10 +4781,14 @@ def main() -> int:
     kernels.append({
         "name": "nn_sqdist_argmin (K5b, the ICP 1-NN)",
         "route": "cuda",
-        "route_kernels": ["nn_pack (a lane's targets as float4 (x, y, z, |t|^2))",
-                          "nn_scan (lane x query block x target split; a running (d, index) "
-                          "a query)",
-                          "nn_merge (the splits' partial (d, index), in order)"],
+        "route_kernels": ["nn_pack (a lane's targets as float4 (x, y, z, tag) and each "
+                          "tile's box of valid targets)",
+                          "nn_scan (lane x 512 queries x target split: the lane's midpoint "
+                          "from its tile boxes, a warp's tiles nearest first, the exact box "
+                          "cull, centring and t2 on the way into shared memory, a running "
+                          "least (value, index) a query, the re-score when unsplit)",
+                          "nn_merge (the splits' partial (value, index), in order, and the "
+                          "re-score)"],
         "source": "ltm_torch/csrc/nn_argmin.cu",
         "replaces": "ltm/kernels/knn.py:177",
         "launches": fw["nn_launches_per_run"][-1],
@@ -4670,16 +4800,23 @@ def main() -> int:
         "max_abs_err_is": "distances, kernel route against the plain version: 0 where the "
                           "indices agree, the near-ties' gap elsewhere",
         "near_ties_phase8_warmup": fw["nn_farm_check"]["near_ties"],
+        "farm_work_phase8_warmup": {k: fw["nn_farm_check"][k] for k in (
+            "tiles_considered", "tiles_scored", "tiles_culled", "update_branches",
+            "cull_share", "min_cull_share")},
+        "work": nn8["work"],
         "calls_checked_phase8_warmup": fw["nn_farm_check"]["calls"],
         "ms": nn8["ms"], "device_ms": nn8["device_ms"], "unsplit_ms": nn8["unsplit_ms"],
         "plain_ms": nn8["plain_ms"], "bound_ms": nn8["bound_ms"], "bound_by": nn8["bound_by"],
         "library_ms": nn8["library_ms"], "library": nn8["library"],
         "call": nn8["shape"], "splits": nn8["splits"],
+        "all_pairs_bound_ms": nn8["all_pairs_bound_ms"], "scored_pairs": nn8["scored_pairs"],
+        "split_sweep_ms": nn8["split_sweep_ms"],
         "peak_above_inputs_bytes": nn8["peak_above_inputs_bytes"],
         "plain_peak_above_inputs_bytes": nn8["plain_peak_above_inputs_bytes"],
-        "phase2_farm_shape": next({k: st.get(k) for k in ("ms", "plain_ms", "bound_ms",
-                                                          "library_ms", "device_ms")}
-                                  for st in nn_phase2 if st["case"] == "farm_largest"),
+        **{f"phase2_{case}": next({k: st.get(k) for k in ("ms", "plain_ms", "bound_ms",
+                                                          "library_ms", "device_ms", "work")}
+                                  for st in nn_phase2 if st["case"] == case)
+           for case in ("farm_largest", "farm_sorted")},
         "cases": len(nn_phase2),
     })
     k5a = fw["tridiag_largest_call"]
@@ -4687,10 +4824,14 @@ def main() -> int:
     marginals = next(st for st in k5a_phase2 if st["lanes"] == [120] and "ms" in st["apply"])
     route = {"factor": "tridiag_factor<float|double> (a CTA of 64 threads a chain, an entry a "
                        "thread; two 6x6 products and an in-place Gauss-Jordan inverse a step, "
-                       "the next step's blocks loaded during this one)",
-             "apply": "tridiag_apply<float|double> (a warp a (lane, chain); the carried "
-                      "6-vector in lanes 0-5, each mat-vec six shuffles and six FMAs; forward "
-                      "pass, then back substitution, y kept in the output)"}
+                       "the next step's blocks loaded during this one; writes Cinv, Lc and "
+                       "P = Cinv_{i-1} L_i^T)",
+             "apply": "tridiag_apply<float|double> (a CTA of four warps a chain and up to "
+                      "5 lanes: warp 0 runs y_i = r_i - P_i^T y_{i-1} and x_i = w_i - "
+                      "P_{i+1} x_{i+1}, six threads a lane, one 6x6 mat-vec a dependent "
+                      "step, operands from shared memory; warps 1-3 stage the blocks, r "
+                      "and w by cp.async in segments of 32 steps, convert them to double, "
+                      "form w_i = Cinv_i y_i and write w and x out)"}
     for which, line in (("factor", "ltm/graph/solver.py:198"), ("apply", "ltm/graph/solver.py:222")):
         st = k5a[which]
         kernels.append({
@@ -4703,6 +4844,7 @@ def main() -> int:
             "launches_path": "phase 8 (LTSlam.run, LTSlamConfig()): eager calls, the call each "
                              "PCG captures included; its CUDA-graph replays launch without a "
                              "count",
+            **({"runs_with_pcg_replays": fw["tridiag_apply_runs"]} if which == "apply" else {}),
             "max_abs_err": max([fw["tridiag_check"][which]["max_abs_err"]]
                                + [c[which]["max_abs_err"] for c in k5a_cases]),
             "max_abs_err_is": "against the float64 plain version on the same inputs",
@@ -4723,6 +4865,8 @@ def main() -> int:
                         "chains' dependent steps bind",
             "max_len": k5a["max_len"], "dependent_steps": st["dependent_steps"],
             "ms_per_dependent_step": st["ms_per_dependent_step"],
+            **({k: st[k] for k in ("step_floor_ms", "dependent_step_floor_ms")}
+               if which == "apply" else {}),
             "library_ms": None,
             "library": "none: no PyTorch call computes a block-tridiagonal factor or solve",
             "call": {"variables": k5a["variables"], "n_chains": k5a["n_chains"],

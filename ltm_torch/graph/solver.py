@@ -35,7 +35,8 @@ with one step per variable of the longest chain instead of one per
 variable.  On CPU tensors the sweeps are the plain loops of
 ``kernels/tridiag.py`` (a batched torch op a step); on the card each
 factor and each solve is one launch of ``csrc/tridiag.cu`` (K5a: a CTA a
-chain, a warp a (lane, chain)), the solve inside the PCG's CUDA graph.
+chain; a CTA a chain and a group of lanes, one dependent 6×6 mat-vec a
+step), the solve inside the PCG's CUDA graph.
 """
 
 from __future__ import annotations
@@ -258,9 +259,9 @@ def _chains(g: GraphData) -> _Chains:
 
 def _tridiag_factor(D: torch.Tensor, L: torch.Tensor, ch: _Chains):
     """Block-Thomas factorization of the SPD block-tridiagonal (D, L) over
-    the chains ``ch``: ``(Cinv, Lc)``, chain-major (n_chains, max_len, 6, 6)
-    (``kernels/tridiag.py``).  CPU tensors take the plain loop, CUDA tensors
-    launch the kernel (K5a); any other device raises."""
+    the chains ``ch``: ``(Cinv, Lc, P)``, chain-major (n_chains, max_len, 6,
+    6) (``kernels/tridiag.py``).  CPU tensors take the plain loop, CUDA
+    tensors launch the kernel (K5a); any other device raises."""
     if D.device.type == "cpu":
         return tridiag_factor_plain(D, L, ch.pos)
     if D.device.type == "cuda":
@@ -268,14 +269,16 @@ def _tridiag_factor(D: torch.Tensor, L: torch.Tensor, ch: _Chains):
     raise ValueError(f"_tridiag_factor runs on cuda or cpu, not {D.device}")
 
 
-def _tridiag_apply(Cinv: torch.Tensor, Lc: torch.Tensor, ch: _Chains, r: torch.Tensor) -> torch.Tensor:
+def _tridiag_apply(Cinv: torch.Tensor, Lc: torch.Tensor, P: torch.Tensor, ch: _Chains,
+                   r: torch.Tensor) -> torch.Tensor:
     """Solve M x = r (r: (..., V, 6)) from the factorization, over the
     chains side by side (``kernels/tridiag.py``): the plain loop on CPU
-    tensors, the kernel (K5a) on CUDA tensors; any other device raises."""
+    tensors (from ``Cinv`` and ``Lc``), the kernel (K5a, from ``Cinv`` and
+    ``P``) on CUDA tensors; any other device raises."""
     if r.device.type == "cpu":
         return tridiag_apply_plain(Cinv, Lc, ch.pos, r)
     if r.device.type == "cuda":
-        return tridiag_apply(Cinv, Lc, ch.pos, r)
+        return tridiag_apply(Cinv, P, ch.pos, r)
     raise ValueError(f"_tridiag_apply runs on cuda or cpu, not {r.device}")
 
 
@@ -404,8 +407,8 @@ def _preconditioner(D, L, chains):
     """``apply(r) -> M⁻¹ r`` from the finished blocks: block-Thomas sweeps
     over the chains when there is a subdiagonal ``L``, block-Jacobi else."""
     if L is not None:
-        Cinv, Lc = _tridiag_factor(D, L, chains)
-        return lambda r: _tridiag_apply(Cinv, Lc, chains, r)
+        Cinv, Lc, P = _tridiag_factor(D, L, chains)
+        return lambda r: _tridiag_apply(Cinv, Lc, P, chains, r)
     minv = torch.linalg.inv_ex(D).inverse
     return lambda r: torch.matmul(minv, r[..., None])[..., 0]
 

@@ -137,13 +137,13 @@ def nn_sqdist_argmin(query_xyz, query_mask, target_xyz, target_mask, tile: int =
     first index wins among equal minima; the pick is then re-scored exactly
     as ``(q − t)²`` on the original coordinates.  Invalid queries get 1e30.
     CPU tensors take :func:`nn_sqdist_argmin_plain`; CUDA tensors launch the
-    hand-written kernel (``kernels/nn_argmin.py``, K5b; ``tile`` does not
-    change its result, and it holds no distance block) between the plain
-    version's own centring and re-score, and raise on any other device."""
+    hand-written kernel (``kernels/nn_argmin.py``, K5b: the centring, the
+    selection and the re-score in its launches; ``tile`` does not change
+    its result, and it holds no distance block), and any other device
+    raises."""
     if query_xyz.device.type == "cpu":
         return nn_sqdist_argmin_plain(query_xyz, query_mask, target_xyz, target_mask, tile=tile)
-    best_d, best_i = nn_argmin_select(*_nn_centred(query_xyz, target_xyz, target_mask))
-    return _nn_rescore(query_xyz, query_mask, target_xyz, best_d, best_i)
+    return nn_argmin_select(query_xyz, query_mask, target_xyz, target_mask)
 
 
 def nn_sqdist_argmin_plain(query_xyz, query_mask, target_xyz, target_mask, tile: int = 8192):

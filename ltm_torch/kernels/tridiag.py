@@ -6,20 +6,24 @@ sequential scans of 6×6 ops), over the port's chain layout: ``pos``
 (``graph/solver.py::_chains``), the independent chains side by side.
 
 :func:`tridiag_factor` and :func:`tridiag_apply` launch the hand-written
-kernels of ``ltm_torch/csrc/tridiag.cu`` (a CTA a chain for the factor, a
-warp a (lane, chain) for the solve, each one launch) on CUDA tensors and
-raise on any other device.  :func:`tridiag_factor_plain` and
+kernels of ``ltm_torch/csrc/tridiag.cu`` (a CTA a chain for the factor; a
+CTA a chain and a group of lanes for the solve, its operands staged in
+shared memory, one dependent 6×6 mat-vec a step; each one launch) on CUDA
+tensors and raise on any other device.  :func:`tridiag_factor_plain` and
 :func:`tridiag_apply_plain` are the plain versions, a Python loop of
 batched torch ops a step of the longest chain: the CPU route and the
-card's reference.  ``graph/solver.py``'s ``_tridiag_factor`` and
-``_tridiag_apply`` choose between them by device.  The kernels compute in
-double for both input types, so on the card they agree with the plain
-version to within its own float32 error, not bit for bit (its products and
-inverses go to cuBLAS and a batched LU); each repeats bit for bit.
-:func:`card_rule` is that tolerance, block by block, and
-:func:`random_chain_system` the random SPD systems on which
-``chip_smoke.py`` and the tests apply it.  The module builds and imports
-nothing when it is imported.
+card's reference.  The factor also returns ``P_i = Cinv_{i-1} L_iᵀ``, the
+product both versions form on the way to ``C_i``: the kernel's solve runs
+on ``P`` and ``Cinv`` (``y_i = r_i − P_iᵀ y_{i-1}``, ``x_i = Cinv_i y_i −
+P_{i+1} x_{i+1}``), the plain solve on ``Cinv`` and ``Lc``.
+``graph/solver.py``'s ``_tridiag_factor`` and ``_tridiag_apply`` choose
+between them by device.  The kernels compute in double for both input
+types, so on the card they agree with the plain version to within its own
+float32 error, not bit for bit (its products and inverses go to cuBLAS
+and a batched LU); each repeats bit for bit.  :func:`card_rule` is that
+tolerance, block by block, and :func:`random_chain_system` the random SPD
+systems on which ``chip_smoke.py`` and the tests apply it.  The module
+builds and imports nothing when it is imported.
 """
 
 from __future__ import annotations
@@ -31,27 +35,30 @@ import numpy as np
 import torch
 
 __all__ = ["tridiag_factor", "tridiag_apply", "tridiag_factor_plain", "tridiag_apply_plain",
-           "card_rule", "blockwise_rel_err", "random_chain_system", "RULE_FLOOR"]
+           "card_rule", "blockwise_rel_err", "random_chain_system", "step_floor_ms", "RULE_FLOOR"]
 
 RULE_FLOOR = 1e-6   # card_rule's floor on the largest block's relative error
 
 
 def tridiag_factor_plain(D: torch.Tensor, L: torch.Tensor, pos: torch.Tensor):
     """Block-Thomas factorization of the SPD block-tridiagonal (D, L):
-    ``Cinv`` with ``C_0 = D_0``, ``C_i = D_i − L_i C_{i-1}⁻¹ L_iᵀ``, as
-    ``(n_chains, max_len, 6, 6)`` chain-major blocks (identity past a
-    chain's end), with the chain-major ``L``."""
+    ``(Cinv, Lc, P)``, ``(n_chains, max_len, 6, 6)`` chain-major blocks:
+    ``Cinv`` with ``C_0 = D_0``, ``C_i = D_i − L_i P_i`` (identity past a
+    chain's end), the chain-major ``L``, and ``P_i = C_{i-1}⁻¹ L_iᵀ`` (the
+    inner product of ``C_i``, zero past a chain's end)."""
     eye = torch.eye(6, dtype=D.dtype, device=D.device)
     Dc = torch.cat([D, eye[None]])[pos]
     Lc = torch.cat([L, torch.zeros_like(eye)[None]])[pos]
     prev = eye.expand(pos.shape[0], 6, 6)
-    out = []
+    out, ps = [], []
     for i in range(pos.shape[1]):
         L_i = Lc[:, i]
-        C = Dc[:, i] - torch.matmul(L_i, torch.matmul(prev, L_i.transpose(-1, -2)))
+        P_i = torch.matmul(prev, L_i.transpose(-1, -2))
+        C = Dc[:, i] - torch.matmul(L_i, P_i)
         prev = torch.linalg.inv_ex(C).inverse
         out.append(prev)
-    return torch.stack(out, 1), Lc
+        ps.append(P_i)
+    return torch.stack(out, 1), Lc, torch.stack(ps, 1)
 
 
 def tridiag_apply_plain(Cinv: torch.Tensor, Lc: torch.Tensor, pos: torch.Tensor,
@@ -172,8 +179,8 @@ def _raise_on(rc: int, name: str):
 
 def tridiag_factor(D: torch.Tensor, L: torch.Tensor, pos: torch.Tensor):
     """:func:`tridiag_factor_plain` by the kernel ``csrc/tridiag.cu``:
-    ``(Cinv, Lc)``, both (n_chains, max_len, 6, 6), from ``D``, ``L`` (V, 6,
-    6) float32 or float64 and ``pos`` (n_chains, max_len) int64, all
+    ``(Cinv, Lc, P)``, each (n_chains, max_len, 6, 6), from ``D``, ``L``
+    (V, 6, 6) float32 or float64 and ``pos`` (n_chains, max_len) int64, all
     contiguous on one CUDA device (raises on a CPU tensor).  One launch on
     the current stream, no sync (``tridiag_factor.launches``)."""
     V = D.shape[0] if D.dim() == 3 else -1
@@ -182,49 +189,54 @@ def tridiag_factor(D: torch.Tensor, L: torch.Tensor, pos: torch.Tensor):
     _check_pos(pos, D.device)
     _require_cuda("tridiag_factor", D)
     n, max_len = pos.shape
-    Cinv = D.new_empty((n, max_len, 6, 6))
-    Lc = D.new_empty((n, max_len, 6, 6))
+    Cinv, Lc, P = (D.new_empty((n, max_len, 6, 6)) for _ in range(3))
     dev = D.device.index
     _raise_on(_lib().ltm_tridiag_factor(D.data_ptr(), L.data_ptr(), pos.data_ptr(),
-                                        Cinv.data_ptr(), Lc.data_ptr(),
+                                        Cinv.data_ptr(), Lc.data_ptr(), P.data_ptr(),
                                         int(D.dtype == torch.float64), n, max_len, V, dev,
                                         torch._C._cuda_getCurrentRawStream(dev)),
               "tridiag_factor")
     tridiag_factor.launches += 1
-    return Cinv, Lc
+    return Cinv, Lc, P
 
 
 tridiag_factor.launches = 0   # kernel launches
 
 
-def tridiag_apply(Cinv: torch.Tensor, Lc: torch.Tensor, pos: torch.Tensor,
+def tridiag_apply(Cinv: torch.Tensor, P: torch.Tensor, pos: torch.Tensor,
                   r: torch.Tensor) -> torch.Tensor:
     """:func:`tridiag_apply_plain` by the kernel ``csrc/tridiag.cu``: x
     (..., V, 6) from r (..., V, 6), whose leading dimensions are lanes, and
-    :func:`tridiag_factor`'s ``Cinv``, ``Lc`` and ``pos``, all contiguous on
-    one CUDA device (raises on a CPU tensor).  ``pos`` must place every
-    variable in exactly one chain (``graph/solver.py::_chains`` does): the
-    kernel writes each row of x once and nothing else.  One launch on the
-    current stream, no sync and no allocation but x, so a CUDA graph can
-    capture it (``tridiag_apply.launches``: a graph's replays launch without
-    a count)."""
+    :func:`tridiag_factor`'s ``Cinv``, ``P`` and ``pos``, all contiguous on
+    one CUDA device, ``Cinv`` and ``P`` 16-byte aligned (raises on a CPU
+    tensor).  ``pos`` must place every variable in exactly one chain
+    (``graph/solver.py::_chains`` does): the kernel writes each row of x
+    once and nothing else.  One launch on the current stream, no sync, and
+    no allocation but x and its float64 scratch, so a CUDA graph can capture
+    it (``tridiag_apply.launches``: a graph's replays launch without a
+    count)."""
     if r.dim() < 2 or r.shape[-1] != 6:
         raise ValueError(f"r must be (..., V, 6), got {tuple(r.shape)}")
     n, max_len = pos.shape if pos.dim() == 2 else (-1, -1)
     _check_blocks("Cinv", Cinv, r, (n, max_len, 6, 6))
-    _check_blocks("Lc", Lc, r, (n, max_len, 6, 6))
+    _check_blocks("P", P, r, (n, max_len, 6, 6))
     _check_blocks("r", r, r, r.shape)
     _check_pos(pos, r.device)
     _require_cuda("tridiag_apply", r)
+    for name, t in (("Cinv", Cinv), ("P", P)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (its blocks are copied 16 bytes "
+                             "at a time)")
     V = r.shape[-2]
     if V >= 2**31:
         raise ValueError(f"tridiag_apply takes fewer than 2^31 variables, got {V}")
     x = torch.empty_like(r)
     lanes = r.numel() // (6 * V) if V else 0
+    w = torch.empty((lanes, V, 6), dtype=torch.float64, device=r.device)
     dev = r.device.index
-    _raise_on(_lib().ltm_tridiag_apply(Cinv.data_ptr(), Lc.data_ptr(), pos.data_ptr(),
-                                       r.data_ptr(), x.data_ptr(), int(r.dtype == torch.float64),
-                                       lanes, n, max_len, V, dev,
+    _raise_on(_lib().ltm_tridiag_apply(Cinv.data_ptr(), P.data_ptr(), pos.data_ptr(),
+                                       r.data_ptr(), w.data_ptr(), x.data_ptr(),
+                                       int(r.dtype == torch.float64), lanes, n, max_len, V, dev,
                                        torch._C._cuda_getCurrentRawStream(dev)),
               "tridiag_apply")
     tridiag_apply.launches += 1
@@ -234,16 +246,43 @@ def tridiag_apply(Cinv: torch.Tensor, Lc: torch.Tensor, pos: torch.Tensor,
 tridiag_apply.launches = 0   # kernel launches (a CUDA graph's replays launch without a count)
 
 
+def step_floor_ms(steps: int, device) -> float:
+    """Device ms of ``steps`` dependent steps of the solve's recurrence with
+    every operand in registers (``csrc/tridiag.cu::tridiag_step_floor``, one
+    warp): the least time the recurrence takes on the card, timed with CUDA
+    events after one warm-up launch.  Measurement only; no count."""
+    dev = torch.device(device)
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    m = torch.eye(6, dtype=torch.float64, device=dev).flatten() * 0.5
+    m = torch.cat([m, torch.ones(6, dtype=torch.float64, device=dev)])
+    out = torch.empty(32, dtype=torch.float64, device=dev)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+
+    def launch():
+        _raise_on(_lib().ltm_tridiag_step_floor(m.data_ptr(), steps, out.data_ptr(), dev.index,
+                                                stream), "tridiag_step_floor")
+    launch()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    launch()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     from ltm_torch.kernels._build import load_kernel
 
     lib = load_kernel("tridiag")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ltm_tridiag_factor.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    lib.ltm_tridiag_factor.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
     lib.ltm_tridiag_factor.restype = i
-    lib.ltm_tridiag_apply.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.ltm_tridiag_apply.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.ltm_tridiag_apply.restype = i
+    lib.ltm_tridiag_step_floor.argtypes = [p, i, p, i, p]
+    lib.ltm_tridiag_step_floor.restype = i
     lib.ltm_tridiag_error_string.argtypes = [i]
     lib.ltm_tridiag_error_string.restype = ctypes.c_char_p
     return lib

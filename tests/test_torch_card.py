@@ -21,9 +21,11 @@ JAX) and without the CPU settings of ``pytest.ini``:
     120 lanes: no further from the float64 plain version (the inputs cast
     up) than twice the plain float32 route, or 1e-6, block by block (a
     6×6 block of ``Cinv`` or a row of x, its error over its own size:
-    ``kernels.tridiag.card_rule``);
-    ``Lc`` bit-equal to the plain gather; a second launch bit-equal; a call
-    captured in a CUDA graph equal to the eager call.
+    ``kernels.tridiag.card_rule``), the factor's ``Cinv`` and ``P``, and
+    the solve (which reads ``Cinv`` and ``P``) against the plain solve on
+    ``Cinv`` and ``Lc``; ``Lc`` bit-equal to the plain gather; a second
+    launch bit-equal; a call captured in a CUDA graph equal to the eager
+    call.
 
 ``chip_smoke.py`` runs the same checks at the pipeline's shapes.
 """
@@ -161,15 +163,17 @@ def test_tridiag_kernels_match_plain(dev, dtype, lanes):
     D, L, pos = random_chain_system(rng, CHAIN_LENGTHS, dtype, dev)
     r = torch.from_numpy(rng.normal(size=lanes + (D.shape[0], 6))).to(dev, dtype)
     launches = tridiag_factor.launches, tridiag_apply.launches
-    Cinv, Lc = tridiag_factor(D, L, pos)
-    x = tridiag_apply(Cinv, Lc, pos, r)
+    Cinv, Lc, P = tridiag_factor(D, L, pos)
+    x = tridiag_apply(Cinv, P, pos, r)
     assert (tridiag_factor.launches, tridiag_apply.launches) == (launches[0] + 1, launches[1] + 1)
-    assert x.shape == r.shape and Cinv.shape == pos.shape + (6, 6)
-    C2, L2 = tridiag_factor(D, L, pos)
-    assert torch.equal(C2, Cinv) and torch.equal(L2, Lc)
-    assert torch.equal(tridiag_apply(Cinv, Lc, pos, r), x)
-    Cg, Lg, xg = _captured(lambda: (*tridiag_factor(D, L, pos), tridiag_apply(Cinv, Lc, pos, r)))
-    assert torch.equal(Cg, Cinv) and torch.equal(Lg, Lc) and torch.equal(xg, x)
+    assert x.shape == r.shape and Cinv.shape == pos.shape + (6, 6) and P.shape == Cinv.shape
+    C2, L2, P2 = tridiag_factor(D, L, pos)
+    assert torch.equal(C2, Cinv) and torch.equal(L2, Lc) and torch.equal(P2, P)
+    assert torch.equal(tridiag_apply(Cinv, P, pos, r), x)
+    Cg, Lg, Pg, xg = _captured(lambda: (*tridiag_factor(D, L, pos), tridiag_apply(Cinv, P, pos, r)))
+    assert torch.equal(Cg, Cinv) and torch.equal(Lg, Lc) and torch.equal(Pg, P)
+    assert torch.equal(xg, x)
     assert torch.equal(Lc, tridiag_factor_plain(D, L, pos)[1])
     card_rule(Cinv, lambda *a: tridiag_factor_plain(*a)[0], (D, L, pos), 2)   # raises past it
+    card_rule(P, lambda *a: tridiag_factor_plain(*a)[2], (D, L, pos), 2)
     card_rule(x, tridiag_apply_plain, (Cinv, Lc, pos, r), 1)

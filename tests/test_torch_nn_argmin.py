@@ -15,7 +15,18 @@ kernel's launch plan and split/merge rule.
     selection cut into the plan's target chunks and folded by the merge
     kernel's rule (splits in order, a later one taken only when strictly
     smaller) equals the selection over all targets, indices and distances,
-    for every split count.
+    for every split count;
+  * the kernel's cull (``nn_argmin.prunable``, its plain mirror) never
+    skips a tile that holds a valid target whose plain selection value is
+    at or below the query's best: random clouds, near-ties, duplicate
+    points, invalid targets, km-offset coordinates;
+  * the kernel's visit (each warp's tiles nearest first, the cull, the
+    lexicographic ``(value, index)`` update) modelled on the plain
+    selection values, in that order and in random orders, gives the
+    index-order selection's picks;
+  * the kernel's fused centring (the lane box from its tiles' boxes) and
+    re-score, written out in float32 with the sum order of the device it
+    models, give ``_nn_centred``'s and ``_nn_rescore``'s bits on the CPU.
 
 The kernel itself needs the card: ``tests/test_torch_card.py`` (marked
 ``card``) and ``chip_smoke.py`` hold it to the plain version there.
@@ -28,7 +39,8 @@ import torch
 
 from ltm.kernels.knn import nn_sqdist_argmin as j_nn
 from ltm_torch.kernels import nn_argmin
-from ltm_torch.kernels.knn import _nn_centred, nn_sqdist_argmin, nn_sqdist_argmin_plain
+from ltm_torch.kernels.knn import (_bbox_mid, _nn_centred, _nn_rescore, nn_sqdist_argmin,
+                                   nn_sqdist_argmin_plain)
 from ltm_torch.kernels.knn2 import _split_len
 
 torch.set_num_threads(1)
@@ -142,35 +154,40 @@ def test_entry_point_takes_plain_on_cpu(monkeypatch):
     want = nn_sqdist_argmin_plain(*args, tile=128)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     with pytest.raises(RuntimeError, match="CUDA"):
-        nn_argmin.nn_argmin_select(*_nn_centred(args[0], args[2], args[3]))
+        nn_argmin.nn_argmin_select(*args)
 
 
 # ---- the launch plan and the split route ------------------------------------------
 
 PLAN_CASES = [(1, 1, 1), (32, 4096, 32768), (32, 4096, 8192), (8, 4096, 32768),
-              (1, 4096, 32768), (1, 2000, 5000), (300, 4096, 32768), (64, 100_000, 10)]
+              (1, 4096, 32768), (1, 2000, 5000), (300, 4096, 32768), (64, 100_000, 10),
+              (300, 4096, 200_000)]
 
 
-@pytest.mark.parametrize("sms,ctas_per_sm", [(132, 4), (132, 5), (8, 2)])
+@pytest.mark.parametrize("sms", [132, 114, 8])
 @pytest.mark.parametrize("lanes,n,m", PLAN_CASES)
-def test_plan_splits_only_under_two_waves(lanes, n, m, sms, ctas_per_sm):
-    splits = nn_argmin._plan(lanes, n, m, sms, ctas_per_sm)
+def test_plan_splits_only_under_two_waves(lanes, n, m, sms):
+    splits = nn_argmin._plan(lanes, n, m, sms)
     q_ctas = lanes * -(-n // (nn_argmin._R * nn_argmin._THREADS))
     tiles = -(-m // nn_argmin._TILE)
-    assert (splits > 1) == (q_ctas < 2 * sms * ctas_per_sm and tiles > 1)
+    # two waves of half the SMs: below one query CTA an SM
+    assert (splits > 1) == ((q_ctas < sms and tiles > 1) or tiles > nn_argmin._MAX_TILES)
     chunk = _split_len(m, splits, nn_argmin._TILE)
     assert chunk % nn_argmin._TILE == 0 and splits * chunk >= m
+    assert chunk // nn_argmin._TILE <= nn_argmin._MAX_TILES   # a split's boxes fit the CTA
     assert (splits - 1) * chunk < m                # no split is padding only
     assert 1 <= splits <= tiles
 
 
-@pytest.mark.parametrize("ctas_per_sm", [4, 8, 12])
-def test_plan_farm_largest_call_fills_the_card(ctas_per_sm):
-    # 32 lanes x 4 096 queries: fewer CTAs than two waves of 132 SMs
-    splits = nn_argmin._plan(32, 4096, 32768, 132, ctas_per_sm)
+@pytest.mark.parametrize("sms", [132, 114, 200])
+def test_plan_farm_largest_call_fills_the_card(sms):
+    # 32 lanes x 4 096 queries: a query CTA for every SM and more, so the
+    # targets stay whole; 2 lanes would split them
+    splits = nn_argmin._plan(32, 4096, 32768, sms)
     q_ctas = 32 * 4096 // (nn_argmin._R * nn_argmin._THREADS)
-    assert q_ctas < 2 * 132 * ctas_per_sm
-    assert splits > 1 and q_ctas * splits >= 132 * ctas_per_sm
+    assert q_ctas >= sms and splits == 1
+    few = nn_argmin._plan(2, 4096, 32768, sms)
+    assert few > 1 and 2 * 8 * few >= sms
 
 
 def _selection(q, qm, t, tm):
@@ -257,3 +274,251 @@ def test_merge_rule_takes_strictly_smaller(rng):
     assert torch.equal(d, want.values)
     first = torch.argmax((part_d == want.values).int(), 0)     # the first split at the minimum
     assert torch.equal(i, part_i[first, torch.arange(50)])
+
+
+# ---- the kernel's cull, visit order and fused centring, modelled ---------------------
+
+TILE = nn_argmin._TILE
+
+
+def _tile_boxes(t, tm):
+    """The pack pass's boxes: (lanes, tiles, 2, 3) lo and hi of each tile's
+    valid targets (+inf, -inf for a tile without one), tiles of ``TILE``."""
+    lanes, m = tm.shape
+    tiles = -(-m // TILE)
+    pad = tiles * TILE - m
+    tt = torch.cat([t, torch.zeros(lanes, pad, 3)], 1).reshape(lanes, tiles, TILE, 3)
+    ok = torch.cat([tm, torch.zeros(lanes, pad, dtype=torch.bool)], 1).reshape(lanes, tiles, TILE)
+    lo = torch.where(ok[..., None], tt, torch.inf).amin(-2)
+    hi = torch.where(ok[..., None], tt, -torch.inf).amax(-2)
+    return torch.stack([lo, hi], -2)
+
+
+def _centred_box(box, mid):
+    """A tile's box centred as the kernel centres it (each corner rounded;
+    every side +inf for a tile without a valid target)."""
+    if not bool(torch.isfinite(box[0]).all()):
+        return torch.full((3,), torch.inf), torch.full((3,), torch.inf)
+    return box[0] - mid, box[1] - mid
+
+
+def _cull_cases():
+    rng = np.random.default_rng(11)
+    q, qm, t, tm = _cloud(rng, 2, 400, 3000)
+    yield "random", q, qm, t, tm
+    q, qm, t, tm = _cloud(rng, 2, 400, 3000, offset=2500.0, extent=60.0)
+    yield "km_offset", q, qm, t, tm
+    q, qm, t, tm = _cloud(rng, 1, 300, 2048)
+    t[:, 1::2] = t[:, 0::2]                       # duplicate points
+    q[:, :150] = t[:, rng.integers(0, 2048, 150)]   # queries on targets: clamped zeros
+    yield "duplicates", q, qm, t, tm
+    q, qm, t, tm = _cloud(rng, 1, 300, 2048)
+    t[:, 512:768] = t[:, 256:512] + np.float32(1e-4)   # near-ties a tile apart
+    tm[:, 1024:1536] = False                      # whole tiles of invalid targets
+    yield "near_ties_invalid", q, qm, t, tm
+
+
+@pytest.mark.parametrize("case", ["random", "km_offset", "duplicates", "near_ties_invalid"])
+def test_cull_mirror_never_skips_a_tile_at_the_best(case):
+    """For each query and tile, three bests: the least plain selection
+    value among the tile's valid targets (the tile holds a target at the
+    best: it must not be skipped), the query's final best, and 4× it;
+    wherever the mirror skips, every valid target of the tile lies strictly
+    above the best.  A tile of invalid targets alone is always skipped,
+    which cannot change a pick: ``(1e30, j)`` never precedes ``(1e30, 0)``."""
+    q, qm, t, tm = next(c[1:] for c in _cull_cases() if c[0] == case)
+    args = _t(q, qm, t, tm)
+    q_c, _, _, _ = _nn_centred(args[0], args[2], args[3])
+    mid = _bbox_mid(args[2], args[3])
+    sel = _selection(*args)                                     # (lanes, n, m)
+    sel = torch.where(args[3][:, None, :], sel, torch.inf)      # valid targets only
+    boxes = _tile_boxes(args[2], args[3])
+    final = sel.min(-1).values
+    skipped = held = 0
+    for b in range(q.shape[0]):
+        for k in range(boxes.shape[1]):
+            lo, hi = _centred_box(boxes[b, k], mid[b])
+            in_tile = sel[b, :, k * TILE:(k + 1) * TILE].min(-1).values
+            if not bool(torch.isfinite(lo).all()):
+                assert bool(nn_argmin.prunable(q_c[b], lo, hi, torch.full_like(final[b], 1e30)).all())
+                continue
+            assert not bool(nn_argmin.prunable(q_c[b], lo, hi, in_tile).any())
+            for best in (final[b], 4 * final[b]):
+                cut = nn_argmin.prunable(q_c[b], lo, hi, best)
+                assert bool((in_tile[cut] > best[cut]).all())
+                skipped += int(cut.sum())
+                held += int((~cut).sum())
+    assert skipped > 0 and held > 0
+
+
+def _kernel_visit(sel, q_c, boxes_c, order_of, group=128):
+    """The kernel's selection modelled on the values ``sel`` (lanes, n, m,
+    clamped; +inf past a tile's end): per group of ``group`` queries, the
+    tiles in ``order_of(group's queries, lane)`` order, a tile skipped when
+    the mirror proves it for every query of the group, inside a tile the
+    targets in index order, the least (value, index) kept from (1e30, 0)."""
+    lanes, n, m = sel.shape
+    best_d = torch.full((lanes, n), BIG)
+    best_i = torch.zeros((lanes, n), dtype=torch.int64)
+    for b in range(lanes):
+        for g0 in range(0, n, group):
+            rows = slice(g0, min(n, g0 + group))
+            bd, bi = best_d[b, rows], best_i[b, rows]
+            for k in order_of(q_c[b, rows], b):
+                lo, hi = boxes_c[b][k]
+                if bool(nn_argmin.prunable(q_c[b, rows], lo, hi, bd).all()):
+                    continue
+                for j in range(k * TILE, min(m, (k + 1) * TILE)):
+                    d = sel[b, rows, j]
+                    take = (d <= bd) & ((d < bd) | (j < bi))
+                    bd, bi = torch.where(take, d, bd), torch.where(take, j, bi)
+            best_d[b, rows], best_i[b, rows] = bd, bi
+    return best_d, best_i
+
+
+@pytest.mark.parametrize("order", ["nearest_first", "random", "reversed"])
+def test_kernel_visit_gives_index_order_picks(order):
+    """Nearest tile first (the box-to-box gap, the index on ties), a random
+    order and the reverse, each with the cull, give the index-order
+    selection's picks and values (duplicates and clamped zeros included:
+    the lowest index wins)."""
+    rng = np.random.default_rng(12)
+    q, qm, t, tm = _cloud(rng, 2, 200, 1500)
+    t[:, 700:760] = t[:, 100:160]                 # duplicates in another tile
+    q[:, :40] = t[:, 100:140]                     # queries on them: clamped zeros
+    tm[1, 256:512] = False                        # a tile of invalid targets
+    args = _t(q, qm, t, tm)
+    q_c = _nn_centred(args[0], args[2], args[3])[0]
+    mid = _bbox_mid(args[2], args[3])
+    sel = _selection(*args)
+    boxes = _tile_boxes(args[2], args[3])
+    boxes_c = [[_centred_box(boxes[b, k], mid[b]) for k in range(boxes.shape[1])]
+               for b in range(2)]
+    tiles = boxes.shape[1]
+    perm = np.random.default_rng(3).permutation(tiles)
+
+    def order_of(qc, b):
+        if order == "random":
+            return perm
+        if order == "reversed":
+            return range(tiles - 1, -1, -1)
+        qlo, qhi = qc.amin(0), qc.amax(0)
+        keys = []
+        for k in range(tiles):
+            lo, hi = boxes_c[b][k]
+            g = torch.clamp(torch.maximum(lo - qhi, qlo - hi), min=0.0)
+            keys.append((float((g * g).sum()), k))
+        return [k for _, k in sorted(keys)]
+
+    got_d, got_i = _kernel_visit(sel, q_c, boxes_c, order_of)
+    want_d, want_i = _first_min(sel)
+    assert torch.equal(got_i, want_i) and torch.equal(got_d, want_d)
+    assert int((sel[0, :40] == 0).sum(-1).max()) >= 2     # clamped zeros tie
+
+
+def _sumsq(x, order):
+    """A sum of three float32 squares in ``order``: "012" ((x² + y²) + z²,
+    torch's CPU reduction) or "021" ((x² + z²) + y², torch's CUDA reduction
+    over a last axis of three, the kernel's)."""
+    s = x * x
+    a, b, c = (s[..., int(i)] for i in order)
+    return (a + b) + c
+
+
+def _fused_model(q, qm, t, tm, pick, order):
+    """The kernel's centring (the lane box from the tiles' boxes, its
+    midpoint as torch forms it) and re-score of ``pick``, float32 op by op."""
+    boxes = _tile_boxes(t, tm)
+    lo, hi = boxes[..., 0, :].amin(1), boxes[..., 1, :].amax(1)
+    mid = torch.where(torch.isfinite(lo), torch.tensor(0.5, dtype=torch.float32) * (lo + hi), 0.0)
+    q_c, t_c = q - mid[:, None], t - mid[:, None]
+    q2 = _sumsq(q_c, order)
+    t2 = torch.where(tm, _sumsq(t_c, order), BIG)
+    sel = torch.gather(t, 1, torch.clamp(pick, max=t.shape[1] - 1)[..., None].expand(q.shape))
+    return q_c, q2, t_c, t2, _sumsq(q - sel, order)
+
+
+@pytest.mark.parametrize("offset", [0.0, 1500.0])
+def test_fused_centring_and_rescore_model_matches_torch_ops(offset):
+    """On the CPU, with the CPU's sum order: the centred points, both
+    squared norms and the re-score of the plain pick, bit for bit; lanes
+    without a valid target (mid 0) included.  On the card the kernel sums
+    in torch's CUDA order (x² + z²) + y² (probed on the card), and the
+    card's comparison holds its distances to the plain version's bits."""
+    rng = np.random.default_rng(13)
+    q, qm, t, tm = _cloud(rng, 3, 700, 1300, offset=offset)
+    tm[2] = False
+    args = _t(q, qm, t, tm)
+    want = _nn_centred(args[0], args[2], args[3])
+    _, pick = nn_sqdist_argmin_plain(*args, tile=512)
+    *got, rescored = _fused_model(*args, pick, "012")
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    d_plain, _ = _nn_rescore(args[0], args[1], args[2], torch.zeros_like(rescored), pick)
+    assert torch.equal(torch.where(args[1], rescored, BIG), d_plain)
+    # the two orders differ somewhere: the kernel's is not the CPU's
+    assert not torch.equal(_sumsq(args[0], "012"), _sumsq(args[0], "021"))
+
+
+def _key(d, i):
+    return (float(d), int(i))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_split_ctas_sharing_picks_give_index_order_picks(seed):
+    """The kernel's target splits on one query block: each split a CTA over
+    its chunk of tiles, nearest first, that adopts the shared pick of a
+    query where it is less than its own (then tests the cull again) before
+    scoring a tile and publishes its picks (``atomicMin`` on the
+    (value, index) key) after it; the CTAs' tiles interleaved in a random
+    order.  The final shared picks are the index-order selection's, for
+    every interleaving."""
+    rng = np.random.default_rng(20 + seed)
+    q, qm, t, tm = _cloud(rng, 1, 128, 2600)
+    t[:, 1800:1900] = t[:, 300:400]               # duplicates in another split
+    q[:, :30] = t[:, 300:330]
+    args = _t(q, qm, t, tm)
+    q_c = _nn_centred(args[0], args[2], args[3])[0][0]
+    mid = _bbox_mid(args[2], args[3])[0]
+    sel = _selection(*args)[0]                    # (n, m)
+    boxes = _tile_boxes(args[2], args[3])[0]
+    tiles = boxes.shape[0]
+    boxes_c = [_centred_box(boxes[k], mid) for k in range(tiles)]
+    splits = 4
+    chunk = -(-tiles // splits)
+    n = q.shape[1]
+    shared = [(float(BIG), 0)] * n
+    state = []
+    for sp in range(splits):
+        ks = list(range(sp * chunk, min(tiles, (sp + 1) * chunk)))
+        qlo, qhi = q_c.amin(0), q_c.amax(0)
+
+        def gap(k):
+            lo, hi = boxes_c[k]
+            g = torch.clamp(torch.maximum(lo - qhi, qlo - hi), min=0.0)
+            return (float((g * g).sum()), k)
+        state.append({"order": [k for _, k in sorted(map(gap, ks))],
+                      "bd": torch.full((n,), BIG), "bi": torch.zeros(n, dtype=torch.int64)})
+    steps = [sp for sp in range(splits) for _ in state[sp]["order"]]
+    rng.shuffle(steps)
+    for sp in steps:
+        st = state[sp]
+        k = st["order"].pop(0)
+        lo, hi = boxes_c[k]
+        if bool(nn_argmin.prunable(q_c, lo, hi, st["bd"]).all()):
+            continue
+        for r in range(n):                        # adopt the shared pick where it is less
+            if shared[r] < _key(st["bd"][r], st["bi"][r]):
+                st["bd"][r], st["bi"][r] = shared[r]
+        if bool(nn_argmin.prunable(q_c, lo, hi, st["bd"]).all()):
+            continue
+        bd, bi = st["bd"], st["bi"]
+        for j in range(k * TILE, min(t.shape[1], (k + 1) * TILE)):
+            d = sel[:, j]
+            take = (d <= bd) & ((d < bd) | (j < bi))
+            bd, bi = torch.where(take, d, bd), torch.where(take, j, bi)
+        st["bd"], st["bi"] = bd, bi
+        shared = [min(shared[r], _key(bd[r], bi[r])) for r in range(n)]
+    want_d, want_i = _first_min(sel[None])
+    assert [i for _, i in shared] == want_i[0].tolist()
+    assert torch.equal(torch.tensor([d for d, _ in shared], dtype=torch.float32), want_d[0])

@@ -146,9 +146,9 @@ def test_tridiag_matches_dense_and_ltm():
     D, L = tsolver._precond_blocks(poses, tg, wb, wa, lam, tridiag=True)
     chains = tsolver._chains(tg)
     assert chains.pos.shape[0] > 2            # several chains, laid side by side
-    Cinv, Lc = tsolver._tridiag_factor(D, L, chains)
+    Cinv, Lc, P = tsolver._tridiag_factor(D, L, chains)
     r = torch.from_numpy(np.random.default_rng(1).normal(size=(tg.num_vars, 6)).astype(np.float32))
-    x = tsolver._tridiag_apply(Cinv, Lc, chains, r).numpy()
+    x = tsolver._tridiag_apply(Cinv, Lc, P, chains, r).numpy()
 
     V = tg.num_vars
     M = np.zeros((6 * V, 6 * V))
@@ -166,7 +166,7 @@ def test_tridiag_matches_dense_and_ltm():
     xj = np.asarray(jax.jit(jsolver._tridiag_apply)(Cj, L.numpy(), r.numpy()))
     np.testing.assert_allclose(x, xj, rtol=1e-4, atol=1e-5 * np.abs(xj).max())
     # a batch of right-hand sides (the marginals' lanes) solves lane by lane
-    xb = tsolver._tridiag_apply(Cinv, Lc, chains, torch.stack([r, 2 * r])).numpy()
+    xb = tsolver._tridiag_apply(Cinv, Lc, P, chains, torch.stack([r, 2 * r])).numpy()
     np.testing.assert_allclose(xb[1], 2 * x, rtol=1e-6, atol=1e-6 * np.abs(x).max())
 
 

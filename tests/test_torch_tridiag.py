@@ -12,15 +12,22 @@ the CPU.
     and layouts before that;
   * ``_chains`` places every variable in exactly one chain (the kernel
     writes x through ``pos`` with no fill), as a prefix of its row;
+  * ``tridiag_factor_plain``'s ``P`` is its own inner product
+    ``Cinv_{i-1} L_iᵀ``, bit for bit;
   * the kernels' arithmetic written out in NumPy (``_factor_mirror``,
     ``_apply_mirror``: a chain's steps up to its last valid entry, padding
     steps as identity steps, the in-place Gauss-Jordan inverse with
-    diagonal pivots, double arithmetic rounded at each store, y kept in the
-    output between the passes) within the rule the card holds the kernels
-    to (``tridiag.card_rule``): no further from the float64 plain version
-    than twice the plain float32 route, or 1e-6, block by block (a block's
-    error over its own size); and that rule fails a planted fault of that
-    arithmetic (the L·P term dropped, L transposed on one chain) on an
+    diagonal pivots, ``P`` from the running inverse, double arithmetic
+    rounded at each store; the solve on ``P`` and ``Cinv``, one mat-vec a
+    dependent step, ``w`` kept in double between the passes) within the
+    rule the card holds the kernels to (``tridiag.card_rule``): no further
+    from the float64 plain version than twice the plain float32 route, or
+    1e-6, block by block (a block's error over its own size); its solve in
+    float64 against ``ltm``'s sequential sweep under ``jit`` and the port's
+    plain version on random chain systems and phase 8's chain lengths; and
+    that rule fails a planted fault of that arithmetic (the L·P term
+    dropped, L transposed on one chain, P transposed on one chain, P_i for
+    P_iᵀ in the forward pass, P_i for P_{i+1} in the back pass) on an
     LT-SLAM-like system, where a rule scaled by the largest entry would
     not.
 
@@ -115,7 +122,7 @@ def _by_variable(blocks_chain, pos, V):
 def test_plain_matches_ltm(name, lanes, dtype):
     tg, D, L, ch = _system(name, dtype)
     V = tg.num_vars
-    Cinv, Lc = tridiag.tridiag_factor_plain(D, L, ch.pos)
+    Cinv, Lc, P = tridiag.tridiag_factor_plain(D, L, ch.pos)
     r = _rhs(1, lanes, V, dtype)
     x = tridiag.tridiag_apply_plain(Cinv, Lc, ch.pos, r).numpy()
     assert x.shape == lanes + (V, 6) and Cinv.shape == ch.pos.shape + (6, 6)
@@ -131,7 +138,7 @@ def test_plain_matches_ltm(name, lanes, dtype):
     # past a chain's end: identity and zero
     pad = (ch.pos >= V).numpy()
     assert np.array_equal(Cinv.numpy()[pad], np.broadcast_to(np.eye(6), (pad.sum(), 6, 6)))
-    assert not Lc.numpy()[pad].any()
+    assert not Lc.numpy()[pad].any() and not P.numpy()[pad].any()
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -139,10 +146,10 @@ def test_plain_matches_ltm(name, lanes, dtype):
 def test_dispatch_gives_plain_bits_on_cpu(name, dtype):
     tg, D, L, ch = _system(name, dtype)
     r = _rhs(2, (4,), tg.num_vars, dtype)
-    Cinv, Lc = tsolver._tridiag_factor(D, L, ch)
-    Cp, Lp = tridiag.tridiag_factor_plain(D, L, ch.pos)
-    assert torch.equal(Cinv, Cp) and torch.equal(Lc, Lp)
-    assert torch.equal(tsolver._tridiag_apply(Cinv, Lc, ch, r),
+    Cinv, Lc, P = tsolver._tridiag_factor(D, L, ch)
+    Cp, Lp, Pp = tridiag.tridiag_factor_plain(D, L, ch.pos)
+    assert torch.equal(Cinv, Cp) and torch.equal(Lc, Lp) and torch.equal(P, Pp)
+    assert torch.equal(tsolver._tridiag_apply(Cinv, Lc, P, ch, r),
                        tridiag.tridiag_apply_plain(Cp, Lp, ch.pos, r))
     launches = tridiag.tridiag_factor.launches, tridiag.tridiag_apply.launches
     tsolver._preconditioner(D, L, ch)(r)
@@ -151,23 +158,23 @@ def test_dispatch_gives_plain_bits_on_cpu(name, dtype):
 
 def test_kernel_wrappers_refuse():
     tg, D, L, ch = _system("ragged_sessions", torch.float32)
-    Cinv, Lc = tridiag.tridiag_factor_plain(D, L, ch.pos)
+    Cinv, _, P = tridiag.tridiag_factor_plain(D, L, ch.pos)
     r = _rhs(0, (), tg.num_vars, torch.float32)
     launches = tridiag.tridiag_factor.launches, tridiag.tridiag_apply.launches
     with pytest.raises(RuntimeError, match="CUDA kernel"):
         tridiag.tridiag_factor(D, L, ch.pos)
     with pytest.raises(RuntimeError, match="CUDA kernel"):
-        tridiag.tridiag_apply(Cinv, Lc, ch.pos, r)
+        tridiag.tridiag_apply(Cinv, P, ch.pos, r)
     bad_factor = [(D[:-1], L, ch.pos), (D, L[..., :5], ch.pos), (D.double(), L, ch.pos),
                   (D.half(), L.half(), ch.pos), (D, L, ch.pos.int()), (D, L, ch.pos[0]),
                   (D.transpose(-1, -2), L, ch.pos), (D, L, ch.pos.t())]
     for args in bad_factor:
         with pytest.raises(ValueError):
             tridiag.tridiag_factor(*args)
-    bad_apply = [(Cinv, Lc, ch.pos, r[:, :5]), (Cinv, Lc, ch.pos, r.double()),
-                 (Cinv[:-1], Lc, ch.pos, r), (Cinv, Lc[:, :-1], ch.pos, r),
-                 (Cinv, Lc, ch.pos.int(), r), (Cinv, Lc, ch.pos, r[None].expand(2, -1, -1)),
-                 (Cinv, Lc, ch.pos, r[0])]
+    bad_apply = [(Cinv, P, ch.pos, r[:, :5]), (Cinv, P, ch.pos, r.double()),
+                 (Cinv[:-1], P, ch.pos, r), (Cinv, P[:, :-1], ch.pos, r),
+                 (Cinv, P, ch.pos.int(), r), (Cinv, P, ch.pos, r[None].expand(2, -1, -1)),
+                 (Cinv, P, ch.pos, r[0])]
     for args in bad_apply:
         with pytest.raises(ValueError):
             tridiag.tridiag_apply(*args)
@@ -217,6 +224,7 @@ def _factor_mirror(D, L, pos):
     V, (n, max_len) = D.shape[0], pos.shape
     Cinv = np.broadcast_to(np.eye(6), (n, max_len, 6, 6)).astype(D.dtype)
     Lc = np.zeros((n, max_len, 6, 6), D.dtype)
+    P = np.zeros((n, max_len, 6, 6), D.dtype)
     for c in range(n):
         prev = np.eye(6)
         for i in range(_chain_len(pos[c], V)):
@@ -224,31 +232,41 @@ def _factor_mirror(D, L, pos):
             d, l = (D[v], L[v]) if 0 <= v < V else (np.eye(6, dtype=D.dtype), np.zeros((6, 6), D.dtype))
             Lc[c, i] = l
             l = l.astype(np.float64)
-            prev = _gauss_jordan(d - l @ (prev @ l.T))
+            p = prev @ l.T                                       # from the unrounded inverse
+            P[c, i] = p
+            prev = _gauss_jordan(d - l @ p)
             Cinv[c, i] = prev
-    return Cinv, Lc
+    return Cinv, Lc, P
 
 
-def _apply_mirror(Cinv, Lc, pos, r):
+def _apply_mirror(Cinv, P, pos, r, fault=None, fault_chain=None):
+    """The kernel's solve: forward ``y_i = r_i − P_iᵀ y_{i−1}``, ``w_i =
+    Cinv_i y_i`` (double, kept), back ``x_i = w_i − P_{i+1} x_{i+1}``,
+    rounded once at the store.  ``fault`` plants a wrong operand on chain
+    ``fault_chain`` (every chain when None): ``"P_untransposed_forward"``
+    (``P_i`` for ``P_iᵀ``), ``"P_i_back"`` (``P_i`` for ``P_{i+1}``),
+    ``"P_transposed"`` (``P_iᵀ`` for ``P_i`` in both passes)."""
     V, (n, max_len) = r.shape[-2], pos.shape
     x = np.full(r.shape, np.nan, r.dtype)
     for lane in np.ndindex(r.shape[:-2]):
         rl, xl = r[lane], x[lane]
         for c in range(n):
             steps = _chain_len(pos[c], V)
-            u = np.zeros(6)
+            here = fault if fault_chain in (None, c) else None
+            Pc = P[c].astype(np.float64)
+            if here == "P_transposed":
+                Pc = np.swapaxes(Pc, -1, -2)
+            y, w = np.zeros(6), np.zeros((steps, 6))
             for i in range(steps):
                 v = pos[c, i]
-                y = (rl[v] if 0 <= v < V else 0.0) - Lc[c, i] @ u
-                u = Cinv[c, i].astype(np.float64) @ y
-                if 0 <= v < V:
-                    xl[v] = y                                   # y in the output, rounded
+                Pf = Pc[i] if here == "P_untransposed_forward" else Pc[i].T
+                y = (rl[v] if 0 <= v < V else 0.0) - Pf @ y
+                w[i] = Cinv[c, i].astype(np.float64) @ y
             xn = np.zeros(6)
             for i in range(steps - 1, -1, -1):
                 v = pos[c, i]
-                Lt = Lc[c, i + 1].T if i + 1 < steps else np.zeros((6, 6))
-                t = (xl[v].astype(np.float64) if 0 <= v < V else 0.0) - Lt @ xn
-                xn = Cinv[c, i].astype(np.float64) @ t
+                Pb = Pc[i] if here == "P_i_back" else (Pc[i + 1] if i + 1 < steps else np.zeros((6, 6)))
+                xn = w[i] - Pb @ xn
                 if 0 <= v < V:
                     xl[v] = xn
     return x
@@ -256,6 +274,10 @@ def _apply_mirror(Cinv, Lc, pos, r):
 
 def _factor_out(*args):
     return tridiag.tridiag_factor_plain(*args)[0]
+
+
+def _factor_p(*args):
+    return tridiag.tridiag_factor_plain(*args)[2]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -266,12 +288,13 @@ def test_kernel_arithmetic_within_the_card_rule(name, lanes, dtype):
     V = tg.num_vars
     r = _rhs(4, lanes, V, dtype)
     L32 = tridiag.tridiag_factor_plain(D.float(), L.float(), ch.pos)[1]
-    Cm, Lm = _factor_mirror(D.numpy(), L.numpy(), ch.pos.numpy())
+    Cm, Lm, Pm = _factor_mirror(D.numpy(), L.numpy(), ch.pos.numpy())
     assert np.array_equal(Lm, L32.numpy().astype(Lm.dtype))
     tridiag.card_rule(torch.from_numpy(Cm), _factor_out, (D, L, ch.pos), 2)   # raises past it
+    tridiag.card_rule(torch.from_numpy(Pm), _factor_p, (D, L, ch.pos), 2)
 
     Cin, Lin = torch.from_numpy(Cm), torch.from_numpy(Lm)
-    xm = _apply_mirror(Cm, Lm, ch.pos.numpy(), r.numpy())
+    xm = _apply_mirror(Cm, Pm, ch.pos.numpy(), r.numpy())
     assert not np.isnan(xm).any()
     tridiag.card_rule(torch.from_numpy(xm), tridiag.tridiag_apply_plain, (Cin, Lin, ch.pos, r), 1)
 
@@ -298,17 +321,21 @@ def _transposed_on_chain(blocks, rows):
 
 
 @pytest.mark.parametrize("fault", ["factor_drops_L_P", "factor_transposes_L_on_a_chain",
-                                   "apply_transposes_L_on_a_chain"])
+                                   "apply_transposes_L_on_a_chain", "P_untransposed_forward",
+                                   "P_i_back"])
 def test_card_rule_catches_a_wrong_sweep(fault):
     """The rule, block by block, fails a planted fault of the kernels'
     arithmetic (in the NumPy mirror) on an LT-SLAM-like system, where a
     rule scaled by the largest entry (the unused slots' ``1/λ``) would pass
-    it; the unbroken mirror passes."""
+    it; the unbroken mirror passes.  The solve's faults sit on the long
+    chain: its blocks transposed (``apply_transposes_L_on_a_chain``: the
+    solve reads L through P), ``P_i`` for ``P_iᵀ`` in the forward pass, or
+    ``P_i`` for ``P_{i+1}`` in the back pass."""
     D, L, pos = _slam_like_system()
     p, V = pos.numpy(), D.shape[0]
-    long_chain = p[np.argmax((p < V).sum(1))]
-    long_vars = long_chain[long_chain < V]
-    Cm, Lm = _factor_mirror(D.numpy(), L.numpy(), p)
+    long_chain = int(np.argmax((p < V).sum(1)))
+    long_vars = p[long_chain][p[long_chain] < V]
+    Cm, Lm, Pm = _factor_mirror(D.numpy(), L.numpy(), p)
     r = _rhs(6, (2,), V, torch.float32)
     if fault.startswith("factor"):
         Lbad = np.zeros_like(L.numpy()) if fault == "factor_drops_L_P" else \
@@ -316,8 +343,9 @@ def test_card_rule_catches_a_wrong_sweep(fault):
         good, bad = Cm, _factor_mirror(D.numpy(), Lbad, p)[0]
         plain, inputs, block_dims = _factor_out, (D, L, pos), 2
     else:
-        Lc_bad = _transposed_on_chain(Lm, (np.argmax((p < V).sum(1)),))
-        good, bad = _apply_mirror(Cm, Lm, p, r.numpy()), _apply_mirror(Cm, Lc_bad, p, r.numpy())
+        mirror_fault = "P_transposed" if fault == "apply_transposes_L_on_a_chain" else fault
+        good = _apply_mirror(Cm, Pm, p, r.numpy())
+        bad = _apply_mirror(Cm, Pm, p, r.numpy(), mirror_fault, long_chain)
         plain, inputs, block_dims = (tridiag.tridiag_apply_plain,
                                      (torch.from_numpy(Cm), torch.from_numpy(Lm), pos, r), 1)
     tridiag.card_rule(torch.from_numpy(good), plain, inputs, block_dims)
@@ -339,11 +367,56 @@ def test_kernel_arithmetic_padding_steps():
     holed = np.concatenate([pos[:, :1], np.full((pos.shape[0], 1), V), pos[:, 1:]], 1)
     holed = np.concatenate([holed, np.full((1, holed.shape[1]), V)])      # a row of padding
     hp = torch.from_numpy(holed)
-    Cref, Lref = tridiag.tridiag_factor_plain(D, L, hp)
-    Cm, Lm = _factor_mirror(D.numpy(), L.numpy(), holed)
+    Cref, Lref, Pref = tridiag.tridiag_factor_plain(D, L, hp)
+    Cm, Lm, Pm = _factor_mirror(D.numpy(), L.numpy(), holed)
     np.testing.assert_allclose(Cm, Cref.numpy(), rtol=1e-9, atol=1e-12 * np.abs(Cm).max())
+    np.testing.assert_allclose(Pm, Pref.numpy(), rtol=1e-9, atol=1e-12 * np.abs(Pm).max())
     assert np.array_equal(Lm, Lref.numpy())
     r = _rhs(5, (2,), V, torch.float64)
     xref = tridiag.tridiag_apply_plain(Cref, Lref, hp, r).numpy()
-    np.testing.assert_allclose(_apply_mirror(Cm, Lm, holed, r.numpy()), xref, rtol=1e-9,
+    np.testing.assert_allclose(_apply_mirror(Cm, Pm, holed, r.numpy()), xref, rtol=1e-9,
                                atol=1e-12 * np.abs(xref).max())
+
+
+def test_plain_factor_p_is_its_inner_product():
+    """``P_i`` is the plain factor's own ``Cinv_{i−1} L_iᵀ`` (the identity
+    before the first step), bit for bit, in both types."""
+    for dtype in DTYPES:
+        tg, D, L, ch = _system("ragged_sessions", dtype)
+        Cinv, Lc, P = tridiag.tridiag_factor_plain(D, L, ch.pos)
+        prev = torch.cat([torch.eye(6, dtype=dtype).expand(Cinv.shape[0], 1, 6, 6),
+                          Cinv[:, :-1]], 1)
+        for i in range(P.shape[1]):
+            assert torch.equal(P[:, i], torch.matmul(prev[:, i], Lc[:, i].transpose(-1, -2)))
+
+
+# phase 8's chain layout (chip_smoke.SLAM_CHAIN_LENGTHS): 1 026 variables,
+# two chains of 499, 28 of one
+PHASE8_LENGTHS = (1, 1, 1, 499) + (1,) * 12 + (1, 499) + (1,) * 12
+
+
+@pytest.mark.parametrize("lanes", [1, 4])
+@pytest.mark.parametrize("lengths", [(1, 40, 2, 1, 17, 60), PHASE8_LENGTHS],
+                         ids=["ragged", "phase8"])
+def test_new_recurrence_matches_ltm_and_plain(lengths, lanes):
+    """The kernel's solve (``_apply_mirror`` on the mirror factor's ``P``
+    and ``Cinv``, float64) against ``ltm``'s sequential sweep under ``jit``
+    (64-bit types on, over the variables in order: every chain starts with
+    a zero ``L``) and the port's plain solve, on ``random_chain_system``:
+    block by block within 1e-9 of each (float64 rounding over chains of up
+    to 499 steps, the systems' blocks spread over eight decades)."""
+    rng = np.random.default_rng(len(lengths) + lanes)
+    D, L, pos = tridiag.random_chain_system(rng, lengths, torch.float64, "cpu")
+    V = D.shape[0]
+    r = torch.from_numpy(rng.normal(size=(lanes, V, 6)))
+    Cm, Lm, Pm = _factor_mirror(D.numpy(), L.numpy(), pos.numpy())
+    xm = torch.from_numpy(_apply_mirror(Cm, Pm, pos.numpy(), r.numpy()))
+    Cp, Lp, _ = tridiag.tridiag_factor_plain(D, L, pos)
+    xp = tridiag.tridiag_apply_plain(Cp, Lp, pos, r)
+    with jax.enable_x64(True):
+        Cj = jax.jit(jsolver._tridiag_factor)(D.numpy(), L.numpy())
+        apply = jax.jit(jax.vmap(jsolver._tridiag_apply, in_axes=(None, None, 0)))
+        xj = torch.from_numpy(np.asarray(apply(Cj, L.numpy(), r.numpy())))
+    assert xj.dtype == torch.float64
+    assert tridiag.blockwise_rel_err(xm, xj, 1) <= 1e-9
+    assert tridiag.blockwise_rel_err(xm, xp, 1) <= 1e-9
