@@ -50,12 +50,15 @@ sm_90a), then runs fourteen phases, each of which raises on failure:
      (``csrc/tridiag.cu``), on random SPD systems on LTSlam's chain layout
      at phase 8's width and on ragged chains, float32 and float64, with no
      lane, 4 and 120 lanes (the marginals' shape, timed, beside the
-     register-only dependent-step floor): each launched twice (the same
-     bits), captured in a CUDA graph (the eager bits), and the factor's
-     Cinv and P and the solve no further from the float64 plain version
-     than twice the plain float32 route, or 1e-6, both measured block by
-     block (a block's error over its own size: ``kernels.tridiag.card_rule``,
-     through ``tridiag_rule``);
+     register-only dependent-step floors of the factor and the solve, and
+     the solve in float64 for the float64-P trial): each launched twice
+     (the same bits), captured in a CUDA graph (the eager bits), and the
+     factor's Cinv and P and the solve no further from the float64 plain
+     version than twice the plain float32 route, or 1e-6, both measured
+     block by block (a block's error over its own size:
+     ``kernels.tridiag.card_rule``, through ``tridiag_rule``); the factor's
+     reciprocal (``rcp.approx.ftz.f64`` and a Newton step) within one ulp
+     of IEEE ``1/x`` on 2^22 values (``recip_check``);
   3. card vs CPU: ``Removerter.run`` on a small synthetic survey on the CPU
      (plain versions) and on the card (kernels); the 14 named point sets
      agree within max(2, 1e-4·|set|) points;
@@ -102,11 +105,13 @@ sm_90a), then runs fourteen phases, each of which raises on failure:
      warm-up run are held to the plain version and timed against their
      bound and ``index_add_``, wrapper and device time; every eager call of
      the tridiagonal factor and solve (K5a) in the warm-up run is held to
-     its plain version under phase 2's rule (``TridiagCheck``), K5a must
+     its plain version under phase 2's rule (``TridiagCheck``: the
+     factor's Cinv and P, its Lc bit-equal, the solve; each float32 solve
+     also with P kept in double, ``p64_trial``), K5a must
      launch once a call of each, the solve's runs are counted with the
      PCG's graph replays, its largest calls are timed (one call, a call in
      a CUDA graph, the plain version, the bound, the longest chain, the
-     device ms a dependent step and the register-only floor), a
+     device ms a dependent step and the register-only floors), a
      graph-replayed PCG iteration is
      profiled by kernel with K5a and with the plain sweeps, and one run with
      the plain sweeps gives the wall and the solver's stages beside the
@@ -1325,31 +1330,66 @@ def captured(fn):
 
 def tridiag_bound(which, args):
     """(bound_ms, bound_by) of one K5a call: the larger of its bytes at the
-    HBM rate and its operations at the peak rate of the inputs' type, over
-    the valid variables alone (a variable's blocks, row of ``r`` and entry
-    of ``pos``; not the chain-major padding past a chain's end, which the
-    function need not produce and the solve does not read).  The factor
-    reads D and L and writes Cinv, a block each a variable (two 6x6
-    products and an inverse, ~1 296 flops); the solve reads Cinv and L and
-    writes x, a lane reading r (four 6x6 mat-vecs, 288 flops, a block a
-    lane).  A throughput bound: the chains' dependent steps, not bytes or
-    flops, bound these kernels (``ms_per_dependent_step``)."""
-    import torch
-
+    HBM rate and its operations at the FP64 peak (both kernels compute in
+    double for either input type), over the valid variables alone (a
+    variable's blocks, row of ``r`` and entry of ``pos``; not the
+    chain-major padding past a chain's end, which the function need not
+    produce and the solve does not read).  The factor reads D and L and
+    writes Cinv, Lc and P, five blocks a variable (two 6x6 products and an
+    inverse, ~1 296 flops); the solve reads Cinv and P and writes x, a lane
+    reading r (four 6x6 mat-vecs, 288 flops, a block a lane).  A
+    throughput bound: the chains' dependent steps, not bytes or flops,
+    bound these kernels (``ms_per_dependent_step`` against the
+    register-only step floors)."""
     if which == "factor":
         D, L, pos = args
-        V, dtype = D.shape[0], D.dtype
+        V = D.shape[0]
         ops = 1296.0 * V
-        nbytes = 3 * V * 36 * D.element_size() + V * 8
+        nbytes = 5 * V * 36 * D.element_size() + V * 8
     else:
         Cinv, Lc, pos, r = args
-        V, dtype = r.shape[-2], r.dtype
+        V = r.shape[-2]
         lanes = r.numel() // (V * 6)
         ops = 288.0 * lanes * V
         nbytes = (2 * V * 36 + 2 * r.numel()) * r.element_size() + V * 8
-    rate = H100_FP32_FLOPS if dtype == torch.float32 else H100_FP64_FLOPS
-    t_ops, t_bytes = ops / rate, nbytes / H100_BYTES_PER_S
+    t_ops, t_bytes = ops / H100_FP64_FLOPS, nbytes / H100_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def p64_solve(D, L, pos, r):
+    """The float32 route's solve as it would run on a float64 P: the
+    factor and the solve launched in float64 on the float32 inputs cast up,
+    Cinv rounded to float32 and x rounded to float32.  Both kernels compute
+    in double from their inputs cast up and round once at each store, so
+    these are the bits a float32 solve staging a float64 P would give.
+    (Cinv as float32, x): the caller checks that this Cinv is the float32
+    factor's.  Counts restored."""
+    from ltm_torch.kernels.tridiag import tridiag_apply, tridiag_factor
+
+    saved = tridiag_counts()
+    try:
+        C64, _, P64 = tridiag_factor(D.double(), L.double(), pos)
+        C32 = C64.float()
+        return C32, tridiag_apply(C32.double(), P64, pos, r.double()).float()
+    finally:
+        set_tridiag_counts(saved)
+
+
+def p64_trial(D, L, pos, r, Cinv, Lc):
+    """The float64-P trial on one float32 solve call: the solve's block
+    error under the card rule with P kept in double (``p64_solve``), its
+    share of the rule's limit, and whether the trial's float32 Cinv is the
+    float32 factor's ``Cinv`` bit for bit (the premise of ``p64_solve``)."""
+    import torch
+
+    from ltm_torch.kernels.tridiag import RULE_FLOOR, blockwise_rel_err
+
+    C32, x = p64_solve(D, L, pos, r)
+    ref = apply_out(Cinv.double(), Lc.double(), pos, r.double())
+    p32 = apply_out(Cinv.float(), Lc.float(), pos, r.float())
+    rel, plain_rel = blockwise_rel_err(x, ref, 1), blockwise_rel_err(p32, ref, 1)
+    return {"max_rel_err": rel, "share_of_limit": rel / max(2 * plain_rel, RULE_FLOOR),
+            "cinv_equal": torch.equal(C32, Cinv)}
 
 
 def compare_tridiag(name, D, L, pos, r, timed=False):
@@ -1363,10 +1403,11 @@ def compare_tridiag(name, D, L, pos, r, timed=False):
     50 calls; the plain version's, whose graph is thousands of nodes a
     call, 2 calls), the plain version's ms (once), the throughput bound,
     the longest chain, the device ms a dependent step (graph ms over
-    max_len, or 2 max_len for the solve) and, for the solve, the
-    dependent-step floor: its steps at the ms a step of the same
-    recurrence with every operand in registers (``step_floor_ms``).  The
-    launch counts are restored."""
+    max_len, or 2 max_len for the solve) and the dependent-step floor: its
+    steps at the ms a step of the same recurrence with every operand in
+    registers (``step_floor``, ``factor_step_floor``); for float32, the
+    float64-P trial (``p64_trial``, ``p64_times``).  The launch counts are
+    restored."""
     import torch
 
     from ltm_torch.kernels.tridiag import (tridiag_apply, tridiag_apply_plain, tridiag_factor,
@@ -1413,9 +1454,13 @@ def compare_tridiag(name, D, L, pos, r, timed=False):
                                                           reps=1),
                     bound_ms=bound_ms, bound_by=bound_by, dependent_steps=dependent,
                     ms_per_dependent_step=graph_ms / dependent)
-            floor = step_floor()
+            floor, f_floor = step_floor(), factor_step_floor()
             st["apply"].update(step_floor_ms=floor,
                                dependent_step_floor_ms=floor * 2 * steps)
+            st["factor"].update(step_floor_ms=f_floor, dependent_step_floor_ms=f_floor * steps)
+            if D.dtype == torch.float32:
+                st["apply"]["p64"] = {**p64_trial(D, L, pos, r, Cinv, Lc),
+                                      **p64_times(D, L, pos, r, Cinv, P)}
             torch.cuda.synchronize()
     finally:
         set_tridiag_counts(saved)
@@ -1429,6 +1474,71 @@ def step_floor(steps=100_000):
     from ltm_torch.kernels.tridiag import step_floor_ms
 
     return statistics.median(step_floor_ms(steps, "cuda") for _ in range(3)) / steps
+
+
+def factor_step_floor(steps=20_000):
+    """ms a dependent step of the factor's recurrence with every operand in
+    registers (``kernels.tridiag.factor_step_floor_ms``: one launch of
+    ``steps`` steps, the median of 3)."""
+    from ltm_torch.kernels.tridiag import factor_step_floor_ms
+
+    return statistics.median(factor_step_floor_ms(steps, "cuda") for _ in range(3)) / steps
+
+
+def p64_times(D, L, pos, r, Cinv, P, turns=2):
+    """The float64-P trial's time: a solve call in a CUDA graph
+    (``graph_replay_ms``) on float32 operands (the shipped route) and the
+    same call in float64 (Cinv, P, r and x all double: more bytes staged
+    than a float32 solve on a float64 P would move, so an upper bound on
+    it), in turns (float32, float64, float64, float32, ...); the medians
+    and every turn.  Counts restored."""
+    from ltm_torch.kernels.tridiag import tridiag_apply, tridiag_factor
+
+    saved = tridiag_counts()
+    try:
+        P64 = tridiag_factor(D.double(), L.double(), pos)[2]
+        sides = {"float32": (Cinv, P, pos, r), "float64": (Cinv.double(), P64, pos, r.double())}
+        order = [k for t in range(turns) for k in (("float32", "float64") if t % 2 == 0
+                                                   else ("float64", "float32"))]
+        got = {k: [] for k in sides}
+        for k in order:
+            got[k].append(graph_replay_ms(lambda: tridiag_apply(*sides[k])))
+    finally:
+        set_tridiag_counts(saved)
+    return {"graph_replay_ms_float32": statistics.median(got["float32"]),
+            "graph_replay_ms_float64": statistics.median(got["float64"]),
+            "turns_ms": got}
+
+
+def recip_check(dev, n=1 << 22):
+    """The factor's reciprocal on the card (``kernels.tridiag.recip_probe``)
+    over ``n`` doubles, random significands at exponents from -100 to 100
+    and both signs: the largest relative error of ``rcp.approx.ftz.f64``'s
+    seed against IEEE ``1 / x`` (float64 division on the card) and of the
+    reciprocal after its Newton step, and the reciprocal's largest distance
+    in ulps from ``1 / x`` and its share of equal results.  Raises if any
+    reciprocal is more than one ulp from ``1 / x``."""
+    import torch
+
+    from ltm_torch.kernels.tridiag import recip_probe
+
+    rng = np.random.default_rng(31)
+    x = rng.uniform(1.0, 2.0, n) * 2.0 ** rng.integers(-100, 101, n) * rng.choice([-1.0, 1.0], n)
+    x[:4] = (1.0, 2.0 - 2.0 ** -52, 1.0 + 2.0 ** -52, 1.5)
+    xt = torch.from_numpy(x).to(dev)
+    seed, y = recip_probe(xt)
+    ref = 1.0 / xt
+    ulps = (y.view(torch.int64) - ref.view(torch.int64)).abs()
+    st = {"inputs": n,
+          "seed_max_rel_err": float(((seed - ref) / ref).abs().max()),
+          "max_rel_err": float(((y - ref) / ref).abs().max()),
+          "max_ulps_from_ieee": int(ulps.max()),
+          "share_equal_to_ieee": float((ulps == 0).double().mean())}
+    st["seed_max_rel_err_log2"] = float(np.log2(st["seed_max_rel_err"]))
+    log(f"[2] the factor's reciprocal: {json.dumps(st)}")
+    if st["max_ulps_from_ieee"] > 1:
+        raise AssertionError(f"the factor's reciprocal: {st['max_ulps_from_ieee']} ulps from 1/x")
+    return st
 
 
 def tridiag_cases(dev):
@@ -1461,11 +1571,14 @@ def tridiag_cases(dev):
 class TridiagCheck:
     """Holds every eager call of the solver's sweeps in a run
     (``graph.solver``'s ``_tridiag_factor`` and ``_tridiag_apply``,
-    through K5a) to the plain version under ``tridiag_rule`` as it happens,
-    and keeps the largest call of each (the solve's by lanes) and the
-    chain layout; a call inside a CUDA graph's capture is counted and runs
-    unchecked (its replays are that captured launch).  The comparisons
-    launch no kernel."""
+    through K5a) to the plain version under ``tridiag_rule`` as it happens
+    (the factor's ``Cinv`` and ``P``, its ``Lc`` bit-equal to the plain
+    gather; the solve's x), runs the float64-P trial (``p64_trial``) on
+    each float32 solve call against the last factor's inputs, and keeps the
+    largest call of each (the solve's by lanes) and the chain layout; a
+    call inside a CUDA graph's capture is counted and runs unchecked (its
+    replays are that captured launch).  The comparisons restore the
+    launch counts."""
 
     def __init__(self):
         from ltm_torch.graph import solver
@@ -1475,8 +1588,13 @@ class TridiagCheck:
         self.stats = {w: {"calls": 0, "checked": 0, "captured": 0, "max_rel_err": 0.0,
                           "plain_f32_rel_err": 0.0, "max_abs_err": 0.0, "worst_share_of_limit": 0.0}
                       for w in self.fns}
+        self.stats["factor"].update(P_max_rel_err=0.0, P_plain_f32_rel_err=0.0,
+                                    P_worst_share_of_limit=0.0)
+        self.stats["apply"]["p64"] = {"calls": 0, "max_rel_err": 0.0, "worst_share_of_limit": 0.0,
+                                      "cinv_differ_calls": 0}
         self.largest = {}
         self.layout = None
+        self.factor_args = None
         solver._tridiag_factor = lambda D, L, ch: self._checked("factor", (D, L, ch))
         solver._tridiag_apply = lambda Cinv, Lc, P, ch, r: self._checked("apply",
                                                                           (Cinv, Lc, P, ch, r))
@@ -1503,6 +1621,25 @@ class TridiagCheck:
         st["max_abs_err"] = max(st["max_abs_err"], abs_err)
         st["worst_share_of_limit"] = max(st["worst_share_of_limit"],
                                          rel / max(2 * plain_rel, RULE_FLOOR))
+        if which == "factor":
+            D, L = args[0], args[1]
+            p_rel, p_plain, _ = tridiag_rule(out[2], factor_p, plain_args)
+            st["P_max_rel_err"] = max(st["P_max_rel_err"], p_rel)
+            st["P_plain_f32_rel_err"] = max(st["P_plain_f32_rel_err"], p_plain)
+            st["P_worst_share_of_limit"] = max(st["P_worst_share_of_limit"],
+                                               p_rel / max(2 * p_plain, RULE_FLOOR))
+            lc = torch.cat([L, L.new_zeros((1, 6, 6))])[pos]
+            if not torch.equal(out[1], lc):
+                raise AssertionError(f"K5a factor: {int((out[1] != lc).sum())} entries of Lc "
+                                     "apart from the plain gather")
+            self.factor_args = (D, L, pos)
+        elif args[0].dtype == torch.float32 and self.factor_args is not None:
+            trial = p64_trial(*self.factor_args, args[4], args[0], args[1])
+            t = st["p64"]
+            t["calls"] += 1
+            t["max_rel_err"] = max(t["max_rel_err"], trial["max_rel_err"])
+            t["worst_share_of_limit"] = max(t["worst_share_of_limit"], trial["share_of_limit"])
+            t["cinv_differ_calls"] += not trial["cinv_equal"]
         size = plain_args[-1].numel()
         if which not in self.largest or size > self.largest[which][-1].numel():
             self.largest[which] = tuple(a.clone() for a in plain_args)
@@ -4585,6 +4722,7 @@ def main() -> int:
     sweep_cases = phase_sweep_cases(dev)
     nn_phase2 = nn_cases(dev)
     k5a_phase2 = tridiag_cases(dev)
+    k5a_recip = recip_check(dev)
 
     cfg = RemovertConfig()
     cfg.downsample_voxel_size = 0.1
@@ -4822,10 +4960,13 @@ def main() -> int:
     k5a = fw["tridiag_largest_call"]
     k5a_cases = k5a_phase2 + [k5a]
     marginals = next(st for st in k5a_phase2 if st["lanes"] == [120] and "ms" in st["apply"])
-    route = {"factor": "tridiag_factor<float|double> (a CTA of 64 threads a chain, an entry a "
-                       "thread; two 6x6 products and an in-place Gauss-Jordan inverse a step, "
-                       "the next step's blocks loaded during this one; writes Cinv, Lc and "
-                       "P = Cinv_{i-1} L_i^T)",
+    route = {"factor": "tridiag_factor<float|double> (a warp a chain, no CTA barrier: lane "
+                       "3k + g holds columns 2g, 2g + 1 of row k in registers; P's pairs and "
+                       "the matrix before each Gauss-Jordan pivot exchanged through shared "
+                       "memory after a __syncwarp; each pivot's reciprocal from "
+                       "rcp.approx.ftz.f64 and one cubic Newton step, formed before the "
+                       "previous pivot's update; all 32 lanes stage D and L a segment of 8 "
+                       "steps ahead; writes Cinv, Lc and P = Cinv_{i-1} L_i^T)",
              "apply": "tridiag_apply<float|double> (a CTA of four warps a chain and up to "
                       "5 lanes: warp 0 runs y_i = r_i - P_i^T y_{i-1} and x_i = w_i - "
                       "P_{i+1} x_{i+1}, six threads a lane, one 6x6 mat-vec a dependent "
@@ -4834,6 +4975,7 @@ def main() -> int:
                       "form w_i = Cinv_i y_i and write w and x out)"}
     for which, line in (("factor", "ltm/graph/solver.py:198"), ("apply", "ltm/graph/solver.py:222")):
         st = k5a[which]
+        check = fw["tridiag_check"][which]
         kernels.append({
             "name": f"tridiag_{which} (K5a)",
             "route": "cuda",
@@ -4845,19 +4987,25 @@ def main() -> int:
                              "PCG captures included; its CUDA-graph replays launch without a "
                              "count",
             **({"runs_with_pcg_replays": fw["tridiag_apply_runs"]} if which == "apply" else {}),
-            "max_abs_err": max([fw["tridiag_check"][which]["max_abs_err"]]
+            "max_abs_err": max([check["max_abs_err"]]
                                + [c[which]["max_abs_err"] for c in k5a_cases]),
             "max_abs_err_is": "against the float64 plain version on the same inputs",
-            "max_rel_err": max([fw["tridiag_check"][which]["max_rel_err"]]
+            "max_rel_err": max([check["max_rel_err"]]
                                + [c[which]["max_rel_err"] for c in k5a_cases]),
-            "plain_f32_rel_err": max([fw["tridiag_check"][which]["plain_f32_rel_err"]]
+            "plain_f32_rel_err": max([check["plain_f32_rel_err"]]
                                      + [c[which]["plain_f32_rel_err"] for c in k5a_cases]),
             "rule": "max_rel_err <= max(2 x the plain float32 route's, 1e-6), each call; "
                     "both the largest block's error over that block's size (a 6x6 block of "
-                    "Cinv, a row of x)",
-            "calls_checked_phase8_warmup": fw["tridiag_check"][which]["checked"],
-            "worst_share_of_limit_phase8_warmup":
-                fw["tridiag_check"][which]["worst_share_of_limit"],
+                    "Cinv or P, a row of x)",
+            "calls_checked_phase8_warmup": check["checked"],
+            "worst_share_of_limit_phase8_warmup": check["worst_share_of_limit"],
+            **({"P_max_rel_err": max([check["P_max_rel_err"]]
+                                     + [c["factor"]["P_max_rel_err"] for c in k5a_cases]),
+                "P_worst_share_of_limit_phase8_warmup": check["P_worst_share_of_limit"],
+                "reciprocal": k5a_recip} if which == "factor" else
+               {"p64_trial_phase8_warmup": check["p64"],
+                "p64_trial_phase8_largest": st.get("p64"),
+                "p64_trial_120_lanes": marginals["apply"].get("p64")}),
             "ms": st["ms"], "graph_replay_ms": st["graph_replay_ms"], "plain_ms": st["plain_ms"],
             "plain_graph_replay_ms": st["plain_graph_replay_ms"],
             "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
@@ -4865,8 +5013,9 @@ def main() -> int:
                         "chains' dependent steps bind",
             "max_len": k5a["max_len"], "dependent_steps": st["dependent_steps"],
             "ms_per_dependent_step": st["ms_per_dependent_step"],
-            **({k: st[k] for k in ("step_floor_ms", "dependent_step_floor_ms")}
-               if which == "apply" else {}),
+            "us_per_dependent_step": st["ms_per_dependent_step"] * 1e3,
+            "step_floor_us": st["step_floor_ms"] * 1e3,
+            "dependent_step_floor_ms": st["dependent_step_floor_ms"],
             "library_ms": None,
             "library": "none: no PyTorch call computes a block-tridiagonal factor or solve",
             "call": {"variables": k5a["variables"], "n_chains": k5a["n_chains"],

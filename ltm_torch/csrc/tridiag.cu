@@ -21,18 +21,31 @@
 // tridiag_factor.  For each chain, in order: C_0 = D_0,
 // P_i = Cinv_{i-1} L_i^T, C_i = D_i - L_i P_i (ltm's product order),
 // Cinv_i = C_i^-1; writes Cinv, Lc (the gathered L, its bits unchanged) and
-// P, chain-major (n_chains, max_len, 6, 6).  One CTA of 64 threads a chain;
-// thread t < 36 holds entry (t / 6, t % 6) of each block.  The products read
-// the running Cinv and L_i from shared memory; D_{i+1}, L_{i+1} and pos[i+1]
-// are loaded into registers while step i computes, since they do not depend
-// on the recurrence.
-//   The inverse is an in-place Gauss-Jordan with the pivots on the diagonal
-// (six steps, ping-pong buffers, one barrier each), not jnp.linalg.inv's LU
-// with partial pivoting: C is SPD by construction (_precond_blocks'
-// docstring; a fixed variable's block is the identity), so every diagonal
-// pivot is a positive Schur complement and elimination without row
-// exchange is backward stable for it, as Cholesky is; it needs no
-// data-dependent row exchange, no square roots and no triangular passes.
+// P, chain-major (n_chains, max_len, 6, 6).  One warp a chain, no CTA
+// barrier: lane 3 k + g holds columns 2 g, 2 g + 1 of row k of each block
+// in registers (lanes 18-31 repeat lanes 0-13, so the warp never
+// diverges); P's pairs and the running matrix before each pivot are
+// exchanged through shared memory after a __syncwarp (a double shuffle
+// keeps one warp busy several times longer than a shared load).  D, L and
+// pos are staged by all 32 lanes a segment of 8 steps ahead, so no
+// device-memory access is on the chain.
+//   The inverse is Gauss-Jordan with the pivots on the diagonal, not
+// jnp.linalg.inv's LU with partial pivoting: C is SPD by construction
+// (_precond_blocks' docstring; a fixed variable's block is the identity),
+// so every diagonal pivot is a positive Schur complement and elimination
+// without row exchange is backward stable for it, as Cholesky is; it needs
+// no data-dependent row exchange, no square roots and no triangular
+// passes.  Each pivot's reciprocal is rcp.approx.ftz.f64 and one cubic
+// Newton step (`recip`), no IEEE division, and the next pivot and its
+// reciprocal are formed before this pivot's update, so the chain from one
+// reciprocal to the next is a multiply, an FMA, the seed and three FMAs.
+//   Measured on an H100 at phase 8's graph (PERF.md): 0.475 us a dependent
+// step, against 0.375 us for the same step with every operand in registers
+// (tridiag_factor_step_floor); the first design (a CTA of 64 threads, an
+// entry a thread, nine CTA barriers and six IEEE divisions a step) took
+// 1.39 us.  The same design with six lanes a row each took 0.74 us
+// (0.65 with its shuffles in a converged warp: idle lanes waiting at a
+// barrier put every shuffle on its slow path).
 //
 // tridiag_apply.  For each lane of r (..., V, 6) (one for LM, 6 M for the
 // marginals) and each chain, the block-Thomas solve rewritten on the
@@ -96,7 +109,6 @@
 
 namespace {
 
-constexpr int kFactorThreads = 64;   // two warps a chain, 36 of them hold an entry
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kSeg = 32;         // steps a staged segment
 constexpr int kCtaLanes = 5;     // lanes a CTA of the solve: one warp, six threads a lane
@@ -117,98 +129,343 @@ __device__ __forceinline__ int warp_chain_len(const int64_t* __restrict__ p, int
   return __reduce_max_sync(kFull, last);
 }
 
+// ---- the factor: a warp a chain ------------------------------------------------
+
+// The reciprocal of a pivot without an IEEE division: rcp.approx.ftz.f64's
+// seed y0 = (1 - e)/x, then one cubic Newton step y1 = y0 (1 + e + e^2) =
+// (1 - e^3)/x in three dependent FMAs (e = 1 - x y0, the product exact
+// inside the FMA).  The seed's relative error is below 2^-19.9 on an H100
+// (chip_smoke.recip_check: 9.8e-7 over 2^22 inputs), so e^3 < 2^-59 and
+// the result is within one ulp of IEEE 1/x (the same check: at most one
+// ulp, 99.97 % equal).  The block rule cannot see a missing step (its 1e-6
+// floor is above the seed's error), so recip_check fails the run if any
+// result is further.  The pivots are positive Schur complements of an SPD
+// C, each at least C's smallest eigenvalue, which for the solver's blocks
+// (information matrices plus the LM damping; a fixed variable's identity)
+// is decades above the normal range's 2.2e-308: no zero or subnormal pivot
+// reaches the flush-to-zero seed, and 1/x stays finite.
+__device__ __forceinline__ double recip(double x) {
+  double y;
+  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(y) : "d"(x));
+  const double e = fma(-x, y, 1.0);
+  return fma(y, fma(e, e, e), y);
+}
+
+// Six doubles from shared memory, 16-byte aligned.
+__device__ __forceinline__ void load6(const double* src, double (&dst)[6]) {
+  const double2* v = reinterpret_cast<const double2*>(src);
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const double2 a = v[j];
+    dst[2 * j] = a.x;
+    dst[2 * j + 1] = a.y;
+  }
+}
+
+// Two entries rounded once to T, to device memory (8-byte aligned for
+// float, 16 for double: an even column of a block).
+__device__ __forceinline__ void store_pair(float* dst, double2 v) {
+  *reinterpret_cast<float2*>(dst) = make_float2(static_cast<float>(v.x), static_cast<float>(v.y));
+}
+__device__ __forceinline__ void store_pair(double* dst, double2 v) {
+  *reinterpret_cast<double2*>(dst) = v;
+}
+
+// The factor's lanes: lane 3 k + g (< 18) holds columns 2 g and 2 g + 1
+// of row k of each block; lanes 18-31 repeat lanes 0-13, so the warp never
+// diverges (only lanes 0-17 write).
+constexpr int kPairLanes = 18;
+
+// The factor's exchange buffers in shared memory, 6x6 doubles each, every
+// one written once a step by the lanes' pairs and read after a __syncwarp:
+// P_i, the running matrix before each of the six pivots, and Cinv_i (read
+// by the next step).  A buffer is rewritten only a step later, after the
+// __syncwarps between, so no lane can still be reading it.
+constexpr int kXP = 0, kXPivot = 1, kXCinv = 7, kXBufs = 8;
+
+__device__ __forceinline__ void put_pair(double* buf, int k, int g, double2 v) {
+  if (threadIdx.x < kPairLanes) *reinterpret_cast<double2*>(buf + k * 6 + 2 * g) = v;
+}
+__device__ __forceinline__ double2 get_pair(const double* buf, int r, int g) {
+  return *reinterpret_cast<const double2*>(buf + r * 6 + 2 * g);
+}
+
+// One dependent step of the factor, run by every lane of the warp; `x`
+// the exchange buffers, x[kXCinv] holding Cinv_{i-1}:
+//   P_i[k][c]     = Cinv_{i-1} row k . L_i row c, c the lane's two columns;
+//   C_i[k][c]     = D_i[k][c] - L_i row k . P_i column c (P_i's pairs
+//                   through x[kXP]);
+//   Cinv_i        by Gauss-Jordan with diagonal pivots: before pivot q the
+//                   lanes put their pairs in x[kXPivot + q] and each takes row q's
+//                   entries at its columns and its own row's entry q; the
+//                   reciprocal is `recip` (every lane forms it), each
+//                   entry one FMA.  Every lane also forms pivot q + 1 as its
+//                   own lane will, from three entries of the same buffer, and
+//                   its reciprocal before pivot q's update, so the chain from
+//                   one reciprocal to the next is a multiply, an FMA and
+//                   `recip`, and the buffer's round trip runs beside it (as
+//                   does C[0][0], which every lane forms as lane 0 does).
+// The exchanges go through shared memory, not shuffles: a double shuffle
+// keeps one warp busy several times longer than a shared load, and
+// the step needs ~40 of them.  Each entry's arithmetic is the same whatever
+// lane holds it.  `ops` gives the step's operands (not on the chain):
+// ops.cols(l0, l1) rows 2 g and 2 g + 1 of L_i, ops.own(lk, d) row k of L_i
+// and D_i[k][2g..2g+1], ops.row0(l, d00) row 0 of L_i and D_i[0][0].
+// Returns the lane's pairs of P_i in `pr` and of Cinv_i in `a` (also left
+// in x[kXCinv] for the next step).
+template <class Ops>
+__device__ __forceinline__ void factor_step(double2& a, double2& pr, const Ops& ops,
+                                            double (*x)[36], int k, int g) {
+  double ar[6], l0[6], l1[6];                   // row k of Cinv_{i-1}; rows 2 g, 2 g + 1 of L_i
+  load6(x[kXCinv] + k * 6, ar);
+  ops.cols(l0, l1);
+  auto dot = [&](const double (&l)[6]) {        // sum_m ar[m] l[m], two chains of three
+    double s0 = ar[0] * l[0], s1 = ar[1] * l[1];
+    s0 = fma(ar[2], l[2], s0);
+    s1 = fma(ar[3], l[3], s1);
+    s0 = fma(ar[4], l[4], s0);
+    s1 = fma(ar[5], l[5], s1);
+    return s0 + s1;
+  };
+  pr = make_double2(dot(l0), dot(l1));
+  put_pair(x[kXP], k, g, pr);
+  __syncwarp();
+  double lk[6];
+  double2 d, s0, s1;
+  ops.own(lk, d);
+#pragma unroll
+  for (int m = 0; m < 6; ++m) {                 // C[k][c] = D[k][c] - sum_m L[k][m] P[m][c]
+    const double2 pm = get_pair(x[kXP], m, g);  // (even m in s0, odd in s1)
+    if (m == 0) {
+      s0 = make_double2(lk[0] * pm.x, lk[0] * pm.y);
+    } else if (m == 1) {
+      s1 = make_double2(lk[1] * pm.x, lk[1] * pm.y);
+    } else if (m % 2 == 0) {
+      s0 = make_double2(fma(lk[m], pm.x, s0.x), fma(lk[m], pm.y, s0.y));
+    } else {
+      s1 = make_double2(fma(lk[m], pm.x, s1.x), fma(lk[m], pm.y, s1.y));
+    }
+  }
+  a = make_double2(d.x - (s0.x + s1.x), d.y - (s0.y + s1.y));
+  double ip;                                    // the reciprocal of the pivot to come
+  {                                             // C[0][0], formed as lane 0 forms it
+    double l[6], d00;
+    ops.row0(l, d00);
+    double t0 = 0.0, t1 = 0.0;
+#pragma unroll
+    for (int m = 0; m < 6; ++m) {
+      const double pm = x[kXP][m * 6];
+      if (m == 0) t0 = l[0] * pm;
+      else if (m == 1) t1 = l[1] * pm;
+      else if (m % 2 == 0) t0 = fma(l[m], pm, t0);
+      else t1 = fma(l[m], pm, t1);
+    }
+    ip = recip(d00 - (t0 + t1));
+  }
+#pragma unroll
+  for (int q = 0; q < 6; ++q) {                 // Gauss-Jordan, pivot (q, q)
+    double* b = x[kXPivot + q];
+    put_pair(b, k, g, a);
+    __syncwarp();
+    const double2 row = get_pair(b, q, g);      // row q at the lane's columns
+    const double akq = b[k * 6 + q];
+    double ip_next = 0.0;
+    if (q < 5) {                                // pivot q + 1 from row q + 1's entries q, q + 1
+      const double nq = b[(q + 1) * 6 + q], nd = b[(q + 1) * 7], rq = b[q * 6 + q + 1];
+      ip_next = recip(fma(-(nq * ip), rq, nd));
+    }
+    const bool pivot = k == q;
+    // row q scales by ip; the others subtract a[k][q] ip times it
+    const double m = pivot ? ip : -(akq * ip);
+    a.x = 2 * g == q ? m : fma(m, row.x, pivot ? 0.0 : a.x);
+    a.y = 2 * g + 1 == q ? m : fma(m, row.y, pivot ? 0.0 : a.y);
+    ip = ip_next;
+  }
+  put_pair(x[kXCinv], k, g, a);
+  __syncwarp();
+}
+
+// The factor's operands of a step, staged in shared memory as double:
+// D_i (36) then L_i (36), row-major.
+struct StagedOps {
+  const double* blk;
+  int k, g;
+  __device__ __forceinline__ void cols(double (&l0)[6], double (&l1)[6]) const {
+    load6(blk + 36 + 12 * g, l0);
+    load6(blk + 42 + 12 * g, l1);
+  }
+  __device__ __forceinline__ void own(double (&lk)[6], double2& d) const {
+    load6(blk + 36 + k * 6, lk);
+    d = *reinterpret_cast<const double2*>(blk + k * 6 + 2 * g);
+  }
+  __device__ __forceinline__ void row0(double (&l)[6], double& d00) const {
+    load6(blk + 36, l);
+    d00 = blk[0];
+  }
+};
+
+constexpr int kFSeg = 8;        // steps a staged segment of the factor (8 x 4 staging lanes)
+constexpr int kFStage = 18;     // values of a segment a lane stages: 72 a step over 4 lanes
+
+// grid (n_chains), one warp a chain.  Every lane runs the dependent steps
+// (factor_step) and lanes 0-17 store their pairs of P_i and Cinv_i (the
+// stores fill the chain's stall cycles; written a segment at a time they
+// cost more); after each segment of kFSeg steps every lane stages: lane j
+// loads a quarter of step j % 8's D and L (18 values, through its
+// own pos entry) of the segment after next into registers, and a segment
+// later converts them to double into shared memory (a ring of three) and
+// writes that step's Lc; pos is loaded a segment before its blocks.  So a
+// step's operands are in shared memory a segment before it runs, and no
+// CTA barrier and no device-memory access is on the chain.
 template <typename T>
-__global__ void __launch_bounds__(kFactorThreads)
+__global__ void __launch_bounds__(32)
 tridiag_factor(const T* __restrict__ D, const T* __restrict__ L, const int64_t* __restrict__ pos,
                T* __restrict__ Cinv, T* __restrict__ Lc, T* __restrict__ P, int max_len, int V) {
-  __shared__ double sC[2][36];   // the running inverse; ping-pong buffers of the elimination
-  __shared__ double sL[36];
-  __shared__ double sP[36];
-  __shared__ int sLen[kFactorThreads / 32];
-  const int t = threadIdx.x;
-  const int chain = blockIdx.x;
-  const int64_t* p = pos + static_cast<long long>(chain) * max_len;
-  const long long base = static_cast<long long>(chain) * max_len * 36;
-
-  const int warp_len = warp_chain_len(p, max_len, V, t, kFactorThreads);
-  if ((t & 31) == 0) sLen[t >> 5] = warp_len;
-  __syncthreads();
-  const int n = max(sLen[0], sLen[1]);
+  __shared__ __align__(16) double sBlk[3][kFSeg][72];
+  __shared__ __align__(16) double sX[kXBufs][36];
+  const int lane = threadIdx.x;
+  const int64_t* p = pos + static_cast<long long>(blockIdx.x) * max_len;
+  const long long base = static_cast<long long>(blockIdx.x) * max_len * 36;
+  const int n = warp_chain_len(p, max_len, V, lane, 32);
 
   // past the chain's last variable: identity and zero, as the padded gathers give
-  for (long long e = static_cast<long long>(n) * 36 + t; e < static_cast<long long>(max_len) * 36;
-       e += kFactorThreads) {
+  const long long end = static_cast<long long>(max_len) * 36;
+  for (long long e = static_cast<long long>(n) * 36 + lane; e < end; e += 32) {
     const int q = static_cast<int>(e % 36);
-    Cinv[base + e] = static_cast<T>(q / 6 == q % 6 ? 1 : 0);
+    Cinv[base + e] = static_cast<T>(q % 7 == 0 ? 1 : 0);
     Lc[base + e] = static_cast<T>(0);
     P[base + e] = static_cast<T>(0);
   }
+  if (n == 0) return;
 
-  const bool on = t < 36;
-  const int row = t / 6, col = t % 6;
-  const double eye = row == col ? 1.0 : 0.0;
-  if (on) sC[0][t] = eye;     // Cinv_{-1} = I (L_0 is zero, so C_0 = D_0)
-  long long v_next = n > 0 ? p[0] : -1;
-  T d_next = static_cast<T>(eye), l_next = static_cast<T>(0);
-  if (on && in_range(v_next, V)) {
-    d_next = D[v_next * 36 + t];
-    l_next = L[v_next * 36 + t];
+  // staging: lane j takes step j % 8 of a segment, entries j / 8 + 4 u of its
+  // D (u < 9) and L (u >= 9); a padding entry is D = I, L = 0
+  const int sq = lane & (kFSeg - 1), part = lane >> 3;
+  T held[kFStage];
+  auto pos_of = [&](int sg) -> long long {
+    const int i = sg * kFSeg + sq;
+    return i < n ? p[i] : -1;
+  };
+  auto fetch = [&](long long v) {
+    const bool ok = in_range(v, V);
+#pragma unroll
+    for (int u = 0; u < 9; ++u) {
+      const int e = part + 4 * u;
+      held[u] = ok ? D[v * 36 + e] : static_cast<T>(e % 7 == 0 ? 1 : 0);
+      held[9 + u] = ok ? L[v * 36 + e] : static_cast<T>(0);
+    }
+  };
+  auto put = [&](int sg) {
+    double* dst = sBlk[sg % 3][sq];
+    const int i = sg * kFSeg + sq;
+#pragma unroll
+    for (int u = 0; u < 9; ++u) {
+      dst[part + 4 * u] = static_cast<double>(held[u]);
+      dst[36 + part + 4 * u] = static_cast<double>(held[9 + u]);
+      if (i < n) Lc[base + static_cast<long long>(i) * 36 + part + 4 * u] = held[9 + u];
+    }
+  };
+  const int segs = (n + kFSeg - 1) / kFSeg;
+  fetch(pos_of(0));
+  put(0);
+  if (segs > 1) {
+    fetch(pos_of(1));
+    put(1);
   }
-  __syncthreads();
+  if (segs > 2) fetch(pos_of(2));
+  long long v_next = segs > 3 ? pos_of(3) : -1;
+  __syncwarp();
 
-  for (int i = 0; i < n; ++i) {
-    const double d = static_cast<double>(d_next);
-    const T l_t = l_next;
-    if (i + 1 < n) {                                   // the next step's blocks, in flight now
-      v_next = p[i + 1];
-      d_next = static_cast<T>(eye);
-      l_next = static_cast<T>(0);
-      if (on && in_range(v_next, V)) {
-        d_next = D[v_next * 36 + t];
-        l_next = L[v_next * 36 + t];
+  const int k = lane % kPairLanes / 3, g = lane % kPairLanes % 3;
+  put_pair(sX[kXCinv], k, g, make_double2(2 * g == k ? 1.0 : 0.0,   // Cinv_{-1} = I (L_0 is
+                                          2 * g + 1 == k ? 1.0 : 0.0));   // zero: C_0 = D_0)
+  __syncwarp();
+  for (int s = 0; s < segs; ++s) {
+    const int steps = min(kFSeg, n - s * kFSeg);
+    for (int q = 0; q < steps; ++q) {
+      const int i = s * kFSeg + q;
+      double2 a, pr;
+      factor_step(a, pr, StagedOps{sBlk[s % 3][q], k, g}, sX, k, g);
+      if (lane < kPairLanes) {                   // P_i and Cinv_i, rounded once
+        const long long o = base + static_cast<long long>(i) * 36 + k * 6 + 2 * g;
+        store_pair(P + o, pr);
+        store_pair(Cinv + o, a);
       }
     }
-    if (on) {
-      sL[t] = static_cast<double>(l_t);
-      Lc[base + static_cast<long long>(i) * 36 + t] = l_t;
+    __syncwarp();
+    if (s + 2 < segs) put(s + 2);                // its slot was last read in segment s - 1
+    if (s + 3 < segs) {
+      fetch(v_next);
+      v_next = s + 4 < segs ? pos_of(s + 4) : -1;
     }
-    __syncthreads();
-    if (on) {                                          // P = Cinv_{i-1} L_i^T
-      double s = 0.0;
-#pragma unroll
-      for (int m = 0; m < 6; ++m) s = fma(sC[0][row * 6 + m], sL[col * 6 + m], s);
-      sP[t] = s;
-      P[base + static_cast<long long>(i) * 36 + t] = static_cast<T>(s);
-    }
-    __syncthreads();
-    if (on) {                                          // C = D_i - L_i P
-      double s = 0.0;
-#pragma unroll
-      for (int m = 0; m < 6; ++m) s = fma(sL[row * 6 + m], sP[m * 6 + col], s);
-      sC[0][t] = d - s;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < 6; ++q) {                      // Gauss-Jordan, pivot (q, q)
-      const double* a = sC[q & 1];
-      if (on) {
-        const double ip = 1.0 / a[q * 7];
-        double nv;
-        if (row == q && col == q) {
-          nv = ip;
-        } else if (row == q) {
-          nv = a[t] * ip;
-        } else if (col == q) {
-          nv = -a[t] * ip;
-        } else {
-          nv = fma(-a[row * 6 + q] * ip, a[q * 6 + col], a[t]);
-        }
-        sC[(q + 1) & 1][t] = nv;
-      }
-      __syncthreads();
-    }
-    if (on) Cinv[base + static_cast<long long>(i) * 36 + t] = static_cast<T>(sC[0][t]);
+    __syncwarp();
   }
+}
+
+// The factor's operands held in registers (tridiag_factor_step_floor).
+struct RegOps {
+  const double (&l0)[6];
+  const double (&l1)[6];
+  const double (&lk)[6];
+  const double (&lr0)[6];
+  double2 d;
+  double d00;
+  __device__ __forceinline__ void cols(double (&c0)[6], double (&c1)[6]) const {
+#pragma unroll
+    for (int j = 0; j < 6; ++j) {
+      c0[j] = l0[j];
+      c1[j] = l1[j];
+    }
+  }
+  __device__ __forceinline__ void own(double (&l)[6], double2& dd) const {
+#pragma unroll
+    for (int j = 0; j < 6; ++j) l[j] = lk[j];
+    dd = d;
+  }
+  __device__ __forceinline__ void row0(double (&l)[6], double& d) const {
+#pragma unroll
+    for (int j = 0; j < 6; ++j) l[j] = lr0[j];
+    d = d00;
+  }
+};
+
+// `steps` dependent steps of the factor's recurrence (factor_step) with
+// every operand in registers: one warp, as tridiag_factor runs it, the same
+// D and L each step.  out (36) keeps the result live.
+__global__ void tridiag_factor_step_floor(const double* __restrict__ m, int steps,
+                                          double* __restrict__ out) {
+  __shared__ __align__(16) double sX[kXBufs][36];
+  const int lane = threadIdx.x;
+  const int k = lane % kPairLanes / 3, g = lane % kPairLanes % 3;
+  double l0[6], l1[6], lk[6], lr0[6];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    l0[j] = m[36 + 12 * g + j];
+    l1[j] = m[42 + 12 * g + j];
+    lk[j] = m[36 + k * 6 + j];
+    lr0[j] = m[36 + j];
+  }
+  const RegOps ops{l0, l1, lk, lr0, make_double2(m[k * 6 + 2 * g], m[k * 6 + 2 * g + 1]), m[0]};
+  put_pair(sX[kXCinv], k, g, make_double2(2 * g == k ? 1.0 : 0.0, 2 * g + 1 == k ? 1.0 : 0.0));
+  __syncwarp();
+  double2 a, pr;
+  for (int s = 0; s < steps; ++s) factor_step(a, pr, ops, sX, k, g);
+  if (lane < kPairLanes) {
+    out[k * 6 + 2 * g] = a.x + pr.x;
+    out[k * 6 + 2 * g + 1] = a.y + pr.y;
+  }
+}
+
+// The reciprocal as the factor forms it, and rcp.approx.ftz.f64's seed
+// alone, of n doubles (chip_smoke.recip_check).
+__global__ void tridiag_recip_probe(const double* __restrict__ x, double* __restrict__ seed,
+                                    double* __restrict__ y, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  double s;
+  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(s) : "d"(x[i]));
+  seed[i] = s;
+  y[i] = recip(x[i]);
 }
 
 // The solve's dependent step, as thread k of a lane's six holds it:
@@ -249,17 +506,6 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// Six doubles from shared memory, 16-byte aligned.
-__device__ __forceinline__ void load6(const double* src, double (&dst)[6]) {
-  const double2* v = reinterpret_cast<const double2*>(src);
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    const double2 a = v[j];
-    dst[2 * j] = a.x;
-    dst[2 * j + 1] = a.y;
-  }
 }
 
 // The solve's dynamic shared memory, between two guard bands (a step reads
@@ -654,11 +900,11 @@ extern "C" int ltm_tridiag_factor(const void* D, const void* L, const int64_t* p
   if (scope.rc != cudaSuccess) return static_cast<int>(scope.rc);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    tridiag_factor<float><<<n_chains, kFactorThreads, 0, s>>>(
+    tridiag_factor<float><<<n_chains, 32, 0, s>>>(
         static_cast<const float*>(D), static_cast<const float*>(L), pos,
         static_cast<float*>(Cinv), static_cast<float*>(Lc), static_cast<float*>(P), max_len, V);
   } else {
-    tridiag_factor<double><<<n_chains, kFactorThreads, 0, s>>>(
+    tridiag_factor<double><<<n_chains, 32, 0, s>>>(
         static_cast<const double*>(D), static_cast<const double*>(L), pos,
         static_cast<double*>(Cinv), static_cast<double*>(Lc), static_cast<double*>(P), max_len,
         V);
@@ -705,6 +951,28 @@ extern "C" int ltm_tridiag_step_floor(const double* m, int steps, double* out, i
   DeviceScope scope(device);
   if (scope.rc != cudaSuccess) return static_cast<int>(scope.rc);
   tridiag_step_floor<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(m, steps, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// m (72,) doubles: D and L of a step; out (36,) doubles.  One warp,
+// `steps` dependent steps (tridiag_factor_step_floor).
+extern "C" int ltm_tridiag_factor_step_floor(const double* m, int steps, double* out, int device,
+                                             void* stream) {
+  DeviceScope scope(device);
+  if (scope.rc != cudaSuccess) return static_cast<int>(scope.rc);
+  tridiag_factor_step_floor<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(m, steps, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x, seed, y (n,) doubles: seed = rcp.approx.ftz.f64(x), y = the factor's
+// reciprocal of x (tridiag_recip_probe).
+extern "C" int ltm_tridiag_recip_probe(const double* x, double* seed, double* y, int n, int device,
+                                       void* stream) {
+  if (n <= 0) return n == 0 ? 0 : static_cast<int>(cudaErrorInvalidValue);
+  DeviceScope scope(device);
+  if (scope.rc != cudaSuccess) return static_cast<int>(scope.rc);
+  tridiag_recip_probe<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(x, seed, y,
+                                                                                     n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,10 +6,11 @@ sequential scans of 6×6 ops), over the port's chain layout: ``pos``
 (``graph/solver.py::_chains``), the independent chains side by side.
 
 :func:`tridiag_factor` and :func:`tridiag_apply` launch the hand-written
-kernels of ``ltm_torch/csrc/tridiag.cu`` (a CTA a chain for the factor; a
-CTA a chain and a group of lanes for the solve, its operands staged in
-shared memory, one dependent 6×6 mat-vec a step; each one launch) on CUDA
-tensors and raise on any other device.  :func:`tridiag_factor_plain` and
+kernels of ``ltm_torch/csrc/tridiag.cu`` (a warp a chain for the factor,
+two columns of a row of each 6×6 block a lane, no division on the chain;
+a CTA a chain and a group of lanes for the solve, its operands staged in
+shared memory, one dependent 6×6 mat-vec a step; each one launch) on
+CUDA tensors and raise on any other device.  :func:`tridiag_factor_plain` and
 :func:`tridiag_apply_plain` are the plain versions, a Python loop of
 batched torch ops a step of the longest chain: the CPU route and the
 card's reference.  The factor also returns ``P_i = Cinv_{i-1} L_iᵀ``, the
@@ -35,7 +36,8 @@ import numpy as np
 import torch
 
 __all__ = ["tridiag_factor", "tridiag_apply", "tridiag_factor_plain", "tridiag_apply_plain",
-           "card_rule", "blockwise_rel_err", "random_chain_system", "step_floor_ms", "RULE_FLOOR"]
+           "card_rule", "blockwise_rel_err", "random_chain_system", "step_floor_ms",
+           "factor_step_floor_ms", "recip_probe", "RULE_FLOOR"]
 
 RULE_FLOOR = 1e-6   # card_rule's floor on the largest block's relative error
 
@@ -246,22 +248,17 @@ def tridiag_apply(Cinv: torch.Tensor, P: torch.Tensor, pos: torch.Tensor,
 tridiag_apply.launches = 0   # kernel launches (a CUDA graph's replays launch without a count)
 
 
-def step_floor_ms(steps: int, device) -> float:
-    """Device ms of ``steps`` dependent steps of the solve's recurrence with
-    every operand in registers (``csrc/tridiag.cu::tridiag_step_floor``, one
-    warp): the least time the recurrence takes on the card, timed with CUDA
-    events after one warm-up launch.  Measurement only; no count."""
-    dev = torch.device(device)
-    if dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    m = torch.eye(6, dtype=torch.float64, device=dev).flatten() * 0.5
-    m = torch.cat([m, torch.ones(6, dtype=torch.float64, device=dev)])
-    out = torch.empty(32, dtype=torch.float64, device=dev)
+def _floor_ms(entry: str, m: torch.Tensor, out_len: int, steps: int) -> float:
+    """Device ms of one launch of a step-floor kernel (``entry``, one warp,
+    ``steps`` steps on the operands ``m``), timed with CUDA events after one
+    warm-up launch."""
+    dev = m.device
+    out = torch.empty(out_len, dtype=torch.float64, device=dev)
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
 
     def launch():
-        _raise_on(_lib().ltm_tridiag_step_floor(m.data_ptr(), steps, out.data_ptr(), dev.index,
-                                                stream), "tridiag_step_floor")
+        _raise_on(getattr(_lib(), f"ltm_{entry}")(m.data_ptr(), steps, out.data_ptr(), dev.index,
+                                                  stream), entry)
     launch()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -269,6 +266,54 @@ def step_floor_ms(steps: int, device) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end)
+
+
+def _cuda_device(device) -> torch.device:
+    dev = torch.device(device)
+    return dev if dev.index is not None else torch.device("cuda", torch.cuda.current_device())
+
+
+def step_floor_ms(steps: int, device) -> float:
+    """Device ms of ``steps`` dependent steps of the solve's recurrence with
+    every operand in registers (``csrc/tridiag.cu::tridiag_step_floor``, one
+    warp): the least time the recurrence takes on the card.  Measurement
+    only; no count."""
+    dev = _cuda_device(device)
+    m = torch.eye(6, dtype=torch.float64, device=dev).flatten() * 0.5
+    return _floor_ms("tridiag_step_floor", torch.cat([m, torch.ones(6, dtype=torch.float64,
+                                                                     device=dev)]), 32, steps)
+
+
+def factor_step_floor_ms(steps: int, device) -> float:
+    """Device ms of ``steps`` dependent steps of the factor's recurrence
+    with every operand in registers (``csrc/tridiag.cu::
+    tridiag_factor_step_floor``: lanes 0-5 of one warp, the same SPD D and
+    L each step, the products and the Gauss-Jordan inverse as
+    ``tridiag_factor`` runs them): the least time the factor's recurrence
+    takes on the card.  Measurement only; no count."""
+    dev = _cuda_device(device)
+    eye = torch.eye(6, dtype=torch.float64, device=dev)
+    D = 3.0 * eye + 0.1
+    L = 0.4 * eye + 0.05 * torch.arange(36, dtype=torch.float64, device=dev).reshape(6, 6) / 36
+    return _floor_ms("tridiag_factor_step_floor", torch.cat([D.flatten(), L.flatten()]), 36, steps)
+
+
+def recip_probe(x: torch.Tensor):
+    """``(seed, y)`` for a contiguous float64 CUDA tensor ``x``: the seed
+    ``rcp.approx.ftz.f64`` gives and the reciprocal ``tridiag_factor``
+    forms from it (``csrc/tridiag.cu::recip``), so a script can hold them
+    to ``1 / x``.  Measurement only; no count."""
+    if x.dtype != torch.float64 or x.device.type != "cuda" or not x.is_contiguous():
+        raise ValueError("recip_probe takes a contiguous float64 CUDA tensor")
+    if x.numel() >= 2**31:
+        raise ValueError("recip_probe takes fewer than 2^31 values")
+    seed, y = torch.empty_like(x), torch.empty_like(x)
+    dev = x.device.index
+    _raise_on(_lib().ltm_tridiag_recip_probe(x.data_ptr(), seed.data_ptr(), y.data_ptr(),
+                                             x.numel(), dev,
+                                             torch._C._cuda_getCurrentRawStream(dev)),
+              "tridiag_recip_probe")
+    return seed, y
 
 
 @functools.lru_cache(maxsize=None)
@@ -283,6 +328,10 @@ def _lib() -> ctypes.CDLL:
     lib.ltm_tridiag_apply.restype = i
     lib.ltm_tridiag_step_floor.argtypes = [p, i, p, i, p]
     lib.ltm_tridiag_step_floor.restype = i
+    lib.ltm_tridiag_factor_step_floor.argtypes = [p, i, p, i, p]
+    lib.ltm_tridiag_factor_step_floor.restype = i
+    lib.ltm_tridiag_recip_probe.argtypes = [p, p, p, i, i, p]
+    lib.ltm_tridiag_recip_probe.restype = i
     lib.ltm_tridiag_error_string.argtypes = [i]
     lib.ltm_tridiag_error_string.restype = ctypes.c_char_p
     return lib

@@ -16,18 +16,24 @@ the CPU.
     ``Cinv_{i-1} L_iᵀ``, bit for bit;
   * the kernels' arithmetic written out in NumPy (``_factor_mirror``,
     ``_apply_mirror``: a chain's steps up to its last valid entry, padding
-    steps as identity steps, the in-place Gauss-Jordan inverse with
-    diagonal pivots, ``P`` from the running inverse, double arithmetic
-    rounded at each store; the solve on ``P`` and ``Cinv``, one mat-vec a
-    dependent step, ``w`` kept in double between the passes) within the
+    steps as identity steps; the factor's step (``_factor_step``) with
+    ``P`` and ``C`` in the kernel's two FMA chains, the Gauss-Jordan inverse
+    with diagonal pivots, one FMA an entry (``_fma``, the card's fused
+    rounding), each pivot's reciprocal from a model of
+    ``rcp.approx.ftz.f64``'s seed and one cubic Newton step (``_recip``,
+    within one ulp of ``1/x`` from any seed within 2^-19), double
+    arithmetic rounded at each store; the solve on ``P`` and ``Cinv``, one
+    mat-vec a dependent step, ``w`` kept in double between the passes) within the
     rule the card holds the kernels to (``tridiag.card_rule``): no further
     from the float64 plain version than twice the plain float32 route, or
     1e-6, block by block (a block's error over its own size); its solve in
     float64 against ``ltm``'s sequential sweep under ``jit`` and the port's
     plain version on random chain systems and phase 8's chain lengths; and
     that rule fails a planted fault of that arithmetic (the L·P term
-    dropped, L transposed on one chain, P transposed on one chain, P_i for
-    P_iᵀ in the forward pass, P_i for P_{i+1} in the back pass) on an
+    dropped, L transposed on one chain, ``C = D − L Pᵀ`` or a pivot taken
+    before the previous pivot's update on one chain, P transposed on one
+    chain, P_i for P_iᵀ in the forward pass, P_i for P_{i+1} in the back
+    pass) on an
     LT-SLAM-like system, where a rule scaled by the largest entry would
     not.
 
@@ -178,6 +184,8 @@ def test_kernel_wrappers_refuse():
     for args in bad_apply:
         with pytest.raises(ValueError):
             tridiag.tridiag_apply(*args)
+    with pytest.raises(ValueError, match="CUDA"):
+        tridiag.recip_probe(torch.ones(4, dtype=torch.float64))
     assert (tridiag.tridiag_factor.launches, tridiag.tridiag_apply.launches) == launches
 
 
@@ -199,43 +207,111 @@ def _chain_len(p, V):
     return int(valid[-1]) + 1 if len(valid) else 0
 
 
-def _gauss_jordan(C):
-    """``csrc/tridiag.cu``'s in-place inverse: pivots on the diagonal, each
-    step from the previous step's entries."""
-    a = C.copy()
+_SPLIT = 134217729.0   # 2^27 + 1 (Veltkamp's split of a double into two halves)
+
+
+def _fma(a, b, c):
+    """``a·b + c`` rounded once, as the card's FMA (elementwise, float64):
+    the product split exactly into ``p + e`` (Dekker), ``p + c`` summed
+    exactly (Knuth), then one rounding of the sum of the parts.  Correct
+    to the last bit but for rare double-rounding ties, far inside the card
+    rule."""
+    a, b, c = (np.asarray(x, np.float64) for x in (a, b, c))
+    p = a * b
+    ah = a * _SPLIT
+    ah = ah - (ah - a)
+    bh = b * _SPLIT
+    bh = bh - (bh - b)
+    al, bl = a - ah, b - bh
+    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    s = p + c
+    z = s - p
+    t = (p - (s - z)) + (c - z)
+    return s + (t + e)
+
+
+def _seed(x):
+    """A model of ``rcp.approx.ftz.f64``'s seed: ``1/x`` with the low 32
+    bits of its pattern cleared, a relative error below 2^-20."""
+    y = np.asarray(1.0 / np.asarray(x, np.float64))
+    return (y.view(np.int64) & ~np.int64(0xFFFFFFFF)).view(np.float64)
+
+
+def _recip(x, newton=1):
+    """``csrc/tridiag.cu::recip``: the seed, then ``newton`` cubic Newton
+    steps ``y (1 + e + e²)``, ``e = 1 − x y`` (one in the kernel)."""
+    y = _seed(x)
+    for _ in range(newton):
+        e = _fma(-x, y, 1.0)
+        y = _fma(y, _fma(e, e, e), y)
+    return y
+
+
+def _factor_step(a, d, l, fault=None):
+    """``csrc/tridiag.cu::factor_step`` on the running inverse ``a``
+    (6×6, row k lane k's), ``D_i`` and ``L_i`` (float64): ``P_i`` row by
+    row from ``a`` and the whole ``L_i`` in two FMA chains of three, ``C_i
+    = D_i − L_i P_i`` likewise from ``P_i``'s rows, then Gauss-Jordan with
+    diagonal pivots, pivot q's row broadcast, its reciprocal ``_recip``,
+    one FMA an entry; the kernel forms pivot q + 1 ahead, from the same
+    operands as its own lane, so the values are these.  (P_i, Cinv_i).
+    ``fault``: ``"seed_only"`` (no Newton step), ``"P_for_Pt"`` (``C = D −
+    L Pᵀ``), ``"stale_pivot"`` (pivot q + 1 taken before pivot q's
+    update)."""
+    s0 = a[:, None, 0] * l[None, :, 0]                      # P[k][c] = sum_m a[k][m] L[c][m]
+    s1 = a[:, None, 1] * l[None, :, 1]
+    for m in range(2, 6):
+        if m % 2 == 0:
+            s0 = _fma(a[:, None, m], l[None, :, m], s0)
+        else:
+            s1 = _fma(a[:, None, m], l[None, :, m], s1)
+    P = s0 + s1
+    Pm = P.T if fault == "P_for_Pt" else P
+    # C[k][c] = D[k][c] - sum_m L[k][m] P[m][c]
+    s0 = l[:, 0, None] * Pm[None, 0, :]
+    s1 = l[:, 1, None] * Pm[None, 1, :]
+    for m in range(2, 6):
+        if m % 2 == 0:
+            s0 = _fma(l[:, m, None], Pm[None, m, :], s0)
+        else:
+            s1 = _fma(l[:, m, None], Pm[None, m, :], s1)
+    a = d - (s0 + s1)
+    stale = a[0, 0]
     for q in range(6):
-        ip = 1.0 / a[q, q]
-        b = a.copy()
-        for i in range(6):
-            for j in range(6):
-                if i == q and j == q:
-                    b[i, j] = ip
-                elif i == q:
-                    b[i, j] = a[i, j] * ip
-                elif j == q:
-                    b[i, j] = -a[i, j] * ip
-                else:
-                    b[i, j] = a[i, j] - a[i, q] * ip * a[q, j]
-        a = b
-    return a
+        row = a[q].copy()
+        ip = _recip(stale if fault == "stale_pivot" else row[q],
+                    newton=0 if fault == "seed_only" else 1)
+        stale = a[min(q + 1, 5), min(q + 1, 5)]
+        m = -(a[:, q] * ip)
+        m[q] = ip                                           # lane q scales its row by ip
+        base = a.copy()
+        base[q] = 0.0
+        a = _fma(m[:, None], row[None, :], base)
+        a[:, q] = m
+    return P, a
 
 
-def _factor_mirror(D, L, pos):
+def _factor_mirror(D, L, pos, fault=None, fault_chain=None):
+    """The kernel's factor: a chain's steps up to its last valid entry
+    (padding steps D = I, L = 0), ``_factor_step`` in double from the
+    inputs cast up, each output rounded once; identity and zero past the
+    end.  ``fault``
+    (``_factor_step``'s) on chain ``fault_chain``, or every chain when
+    None."""
     V, (n, max_len) = D.shape[0], pos.shape
     Cinv = np.broadcast_to(np.eye(6), (n, max_len, 6, 6)).astype(D.dtype)
     Lc = np.zeros((n, max_len, 6, 6), D.dtype)
     P = np.zeros((n, max_len, 6, 6), D.dtype)
     for c in range(n):
-        prev = np.eye(6)
+        a = np.eye(6)
+        here = fault if fault_chain in (None, c) else None
         for i in range(_chain_len(pos[c], V)):
             v = pos[c, i]
             d, l = (D[v], L[v]) if 0 <= v < V else (np.eye(6, dtype=D.dtype), np.zeros((6, 6), D.dtype))
             Lc[c, i] = l
-            l = l.astype(np.float64)
-            p = prev @ l.T                                       # from the unrounded inverse
+            p, a = _factor_step(a, d.astype(np.float64), l.astype(np.float64), here)
             P[c, i] = p
-            prev = _gauss_jordan(d - l @ p)
-            Cinv[c, i] = prev
+            Cinv[c, i] = a
     return Cinv, Lc, P
 
 
@@ -276,6 +352,18 @@ def _factor_out(*args):
     return tridiag.tridiag_factor_plain(*args)[0]
 
 
+def _ltm_factor(D, L, pos):
+    """``ltm``'s ``_tridiag_factor`` under ``jit`` (64-bit types on for
+    float64; every chain starts with a zero ``L``), chain-major like
+    ``Cinv``: identity past a chain's end."""
+    with jax.enable_x64(D.dtype == torch.float64):
+        Cj = np.asarray(jax.jit(jsolver._tridiag_factor)(D.numpy(), L.numpy()))
+    p = pos.numpy()
+    out = np.broadcast_to(np.eye(6, dtype=Cj.dtype), p.shape + (6, 6)).copy()
+    out[p < D.shape[0]] = Cj[p[p < D.shape[0]]]
+    return torch.from_numpy(out)
+
+
 def _factor_p(*args):
     return tridiag.tridiag_factor_plain(*args)[2]
 
@@ -291,6 +379,7 @@ def test_kernel_arithmetic_within_the_card_rule(name, lanes, dtype):
     Cm, Lm, Pm = _factor_mirror(D.numpy(), L.numpy(), ch.pos.numpy())
     assert np.array_equal(Lm, L32.numpy().astype(Lm.dtype))
     tridiag.card_rule(torch.from_numpy(Cm), _factor_out, (D, L, ch.pos), 2)   # raises past it
+    tridiag.card_rule(torch.from_numpy(Cm), _ltm_factor, (D, L, ch.pos), 2)
     tridiag.card_rule(torch.from_numpy(Pm), _factor_p, (D, L, ch.pos), 2)
 
     Cin, Lin = torch.from_numpy(Cm), torch.from_numpy(Lm)
@@ -321,23 +410,38 @@ def _transposed_on_chain(blocks, rows):
 
 
 @pytest.mark.parametrize("fault", ["factor_drops_L_P", "factor_transposes_L_on_a_chain",
+                                   "factor_P_for_Pt", "factor_stale_pivot",
                                    "apply_transposes_L_on_a_chain", "P_untransposed_forward",
                                    "P_i_back"])
 def test_card_rule_catches_a_wrong_sweep(fault):
     """The rule, block by block, fails a planted fault of the kernels'
     arithmetic (in the NumPy mirror) on an LT-SLAM-like system, where a
     rule scaled by the largest entry (the unused slots' ``1/λ``) would pass
-    it; the unbroken mirror passes.  The solve's faults sit on the long
-    chain: its blocks transposed (``apply_transposes_L_on_a_chain``: the
-    solve reads L through P), ``P_i`` for ``P_iᵀ`` in the forward pass, or
-    ``P_i`` for ``P_{i+1}`` in the back pass."""
+    it; the unbroken mirror passes.  The factor's step faults sit on the
+    long chain: ``C = D − L Pᵀ`` (``factor_P_for_Pt``) or pivot q + 1 taken
+    before pivot q's update (``factor_stale_pivot``), each failing the rule
+    on ``Cinv`` and on ``P``.  (A step without its Newton step is within
+    the rule, whose 1e-6 floor is above the seed's 2^-20:
+    ``test_factor_reciprocal_reaches_double`` and
+    ``chip_smoke.recip_check`` hold the reciprocal.)  The solve's faults
+    sit on the long chain: its blocks transposed
+    (``apply_transposes_L_on_a_chain``: the solve reads L through P),
+    ``P_i`` for ``P_iᵀ`` in the forward pass, or ``P_i`` for ``P_{i+1}`` in
+    the back pass."""
     D, L, pos = _slam_like_system()
     p, V = pos.numpy(), D.shape[0]
     long_chain = int(np.argmax((p < V).sum(1)))
     long_vars = p[long_chain][p[long_chain] < V]
     Cm, Lm, Pm = _factor_mirror(D.numpy(), L.numpy(), p)
     r = _rhs(6, (2,), V, torch.float32)
-    if fault.startswith("factor"):
+    if fault in ("factor_P_for_Pt", "factor_stale_pivot"):
+        Cb, _, Pb = _factor_mirror(D.numpy(), L.numpy(), p, fault[len("factor_"):], long_chain)
+        tridiag.card_rule(torch.from_numpy(Pm), _factor_p, (D, L, pos), 2)
+        with pytest.raises(AssertionError, match="relative error"):
+            tridiag.card_rule(torch.from_numpy(Pb), _factor_p, (D, L, pos), 2)
+        good, bad = Cm, Cb
+        plain, inputs, block_dims = _factor_out, (D, L, pos), 2
+    elif fault.startswith("factor"):
         Lbad = np.zeros_like(L.numpy()) if fault == "factor_drops_L_P" else \
             _transposed_on_chain(L.numpy(), long_vars)
         good, bad = Cm, _factor_mirror(D.numpy(), Lbad, p)[0]
@@ -356,6 +460,28 @@ def test_card_rule_catches_a_wrong_sweep(fault):
     p32 = plain(*(x.float() if x.is_floating_point() else x for x in inputs)).numpy()
     scale = np.abs(ref).max()
     assert np.abs(bad - ref).max() / scale <= max(2 * np.abs(p32 - ref).max() / scale, 1e-6)
+
+
+def test_factor_reciprocal_reaches_double():
+    """``csrc/tridiag.cu::recip``, the pivots' reciprocal: from any seed
+    within 2^-19 of ``1/x`` (``rcp.approx.ftz.f64``'s, below 2^-19.95 on
+    the card by ``chip_smoke.recip_check``; the mirror's model ``_seed``),
+    its one cubic Newton step lands within one ulp of ``1/x``; the seed
+    alone is ~2^-20 off, ~2^32 ulps."""
+    rng = np.random.default_rng(7)
+    n = 20_000
+    x = rng.uniform(1.0, 2.0, n) * 2.0 ** rng.integers(-300, 301, n) * rng.choice([-1.0, 1.0], n)
+    ref = 1.0 / x
+
+    def ulps(y):
+        return np.abs(y.view(np.int64) - ref.view(np.int64))
+
+    for eps in (2.0 ** -19, -2.0 ** -19, rng.uniform(-2.0 ** -19, 2.0 ** -19, n)):
+        y0 = ref * (1.0 - eps)
+        e = _fma(-x, y0, 1.0)
+        assert ulps(_fma(y0, _fma(e, e, e), y0)).max() <= 1
+    assert ulps(_recip(x)).max() <= 1
+    assert ulps(_recip(x, newton=0)).max() > 2 ** 20
 
 
 def test_kernel_arithmetic_padding_steps():
@@ -399,10 +525,11 @@ PHASE8_LENGTHS = (1, 1, 1, 499) + (1,) * 12 + (1, 499) + (1,) * 12
 @pytest.mark.parametrize("lengths", [(1, 40, 2, 1, 17, 60), PHASE8_LENGTHS],
                          ids=["ragged", "phase8"])
 def test_new_recurrence_matches_ltm_and_plain(lengths, lanes):
-    """The kernel's solve (``_apply_mirror`` on the mirror factor's ``P``
-    and ``Cinv``, float64) against ``ltm``'s sequential sweep under ``jit``
+    """The kernel's factor (``_factor_mirror``, float64) and solve
+    (``_apply_mirror`` on the mirror factor's ``P`` and ``Cinv``) against
+    ``ltm``'s sequential sweeps under ``jit``
     (64-bit types on, over the variables in order: every chain starts with
-    a zero ``L``) and the port's plain solve, on ``random_chain_system``:
+    a zero ``L``) and the port's plain versions, on ``random_chain_system``:
     block by block within 1e-9 of each (float64 rounding over chains of up
     to 499 steps, the systems' blocks spread over eight decades)."""
     rng = np.random.default_rng(len(lengths) + lanes)
@@ -420,3 +547,5 @@ def test_new_recurrence_matches_ltm_and_plain(lengths, lanes):
     assert xj.dtype == torch.float64
     assert tridiag.blockwise_rel_err(xm, xj, 1) <= 1e-9
     assert tridiag.blockwise_rel_err(xm, xp, 1) <= 1e-9
+    assert tridiag.blockwise_rel_err(torch.from_numpy(Cm), _ltm_factor(D, L, pos), 2) <= 1e-9
+    assert tridiag.blockwise_rel_err(torch.from_numpy(Cm), Cp, 2) <= 1e-9
