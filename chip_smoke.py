@@ -58,7 +58,14 @@ sm_90a), then runs fourteen phases, each of which raises on failure:
      block by block (a block's error over its own size:
      ``kernels.tridiag.card_rule``, through ``tridiag_rule``); the factor's
      reciprocal (``rcp.approx.ftz.f64`` and a Newton step) within one ulp
-     of IEEE ``1/x`` on 2^22 values (``recip_check``);
+     of IEEE ``1/x`` on 2^22 values (``recip_check``); K5c, the solver's
+     Gauss-Newton product (``csrc/gn_product.cu``), on random graphs of
+     phase 8's shape at 1, 4, 120 and 762 lanes (the RS marginals' 6 M) and
+     on small graphs with invalid factors, fixed variables, a row of degree
+     0 and anchored factors whose anchors coincide, float32 and float64:
+     each launched twice and captured in a CUDA graph, bit-equal to
+     ``gn_product_plain`` (``gn_cases``), the one-lane and the marginals'
+     shapes timed against the bound and the route before K5c;
   3. card vs CPU: ``Removerter.run`` on a small synthetic survey on the CPU
      (plain versions) and on the card (kernels); the 14 named point sets
      agree within max(2, 1e-4·|set|) points;
@@ -115,7 +122,16 @@ sm_90a), then runs fourteen phases, each of which raises on failure:
      graph-replayed PCG iteration is
      profiled by kernel with K5a and with the plain sweeps, and one run with
      the plain sweeps gives the wall and the solver's stages beside the
-     timed run's;
+     timed run's; every eager Gauss-Newton product (K5c) of the warm-up and
+     of the RS run is held to ``gn_product_plain`` bit for bit
+     (``GnCheck``), K5c must run once a PCG iteration (its launches with
+     the graph replays), the LM's call and the marginals' are timed
+     (``compare_gn``), the LM's PCG iteration is profiled with the route
+     before K5c too, and the RS run's marginals are measured by parts
+     (``MarginalsProbe``: M, the iterations a lane, the wall split into
+     set-up, first eager iteration, capture and replays, peak memory) and
+     in turns against the route before K5c (``marginals_turns``: old,
+     kernel, kernel, old);
   9. ``python -m ltm_torch.cli.ltmapper`` in a subprocess on session
      directories of 40 keyframes x 8 000 points a session: ``ltslam/``
      holds the eight trajectory files and ``removert/`` equals
@@ -168,7 +184,9 @@ sm_90a), then runs fourteen phases, each of which raises on failure:
      batch), and the solver's collectives an
      LM step; phase 7's cut workload on 4 slots, card against CPU; and
      ``solve_sharded`` on 2 slots through a one-process NCCL group, bit for
-     bit the same call without a group.
+     bit the same call without a group; beside the schur mode's gate, both
+     solves driven the one-device solve's number of LM steps
+     (``fixed_step_pair``, logged).
 
 Every timed call whose targets split is also run and timed with the plan
 held at one split, which must give the same bits.
@@ -177,8 +195,8 @@ It prints the ``{"kernels": [...]}`` line, the ``{"slam": {...}}`` line
 (phases 7-9), the ``{"lifelong": ..., "optin": ..., "headline": ..., "mesh": ...,
 "slam_mesh": ...}`` line (phases 10-14), then the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.  The ``kernels`` line lists K1, K4, K2
-and K3 (each with both variants), the solver's scatter-sum, K5b and K5a's
-factor and solve; the rest of the LT-SLAM path's hot loops (the Scan
+and K3 (each with both variants), the solver's scatter-sum, K5b, K5a's
+factor and solve, and K5c; the rest of the LT-SLAM path's hot loops (the Scan
 Context distance and descriptors) are PyTorch ops, measured in phase 8.  Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero
 and prints no result.  The port imports neither ``jax`` nor ``ltm``.
@@ -1733,6 +1751,368 @@ def pcg_iteration_profile(args, replays=20):
     return st
 
 
+# ---- K5c, the solver's Gauss-Newton product ---------------------------------
+
+def old_product(jac, plan, lam):
+    """The Gauss-Newton product's route before K5c, on a product's plan
+    (``kernels.gn_product.GnPlan``): ``torch.matmul`` a factor end for
+    ``J v`` and for ``Jᵀ y`` (``J`` broadcast over the lanes), the per-end
+    contributions concatenated, then one fixed-order scatter-sum and
+    ``+ λ v`` (the solver's ``_hvp_from_jacobians`` as it was, for the
+    comparisons)."""
+    import torch
+
+    from ltm_torch.kernels.scatter import fixed_order_sum
+
+    idx = [i.long() for i in plan.idx]
+    fixed = plan.fixed.bool()[:, None]
+
+    def fj(J, v):
+        return torch.matmul(J, v[..., None])[..., 0]
+
+    def ftj(J, y):
+        return torch.matmul(J.transpose(-1, -2), y[..., None])[..., 0]
+
+    def hvp(v):
+        vf = torch.where(fixed, 0.0, v)
+        yp = fj(jac[0], vf[..., idx[0], :])
+        yb = fj(jac[1], vf[..., idx[1], :]) + fj(jac[2], vf[..., idx[2], :])
+        ya = torch.zeros(v.shape[:-2] + (jac[3].shape[0], 6), dtype=v.dtype, device=v.device)
+        for k in range(3, 7):
+            ya = ya + fj(jac[k], vf[..., idx[k], :])
+        ys = (yp, yb, yb, ya, ya, ya, ya)
+        ends = torch.cat([ftj(J, ys[k]) for k, J in enumerate(jac)], -2)
+        return fixed_order_sum(ends, plan.ends) + lam * v
+
+    return hvp
+
+
+@contextlib.contextmanager
+def old_gn_route():
+    """The solver's Gauss-Newton products through ``old_product`` (the
+    route before K5c), for a same-card comparison."""
+    from ltm_torch.graph import solver
+
+    saved = solver._hvp_from_jacobians
+    solver._hvp_from_jacobians = lambda jac, g, lam: old_product(
+        tuple(jac), solver._scatters(g).product, lam)
+    try:
+        yield
+    finally:
+        solver._hvp_from_jacobians = saved
+
+
+def graph_shape(g):
+    """A pose graph's factor counts: capacities and valid factors a family,
+    factor ends, valid ends, variables, fixed variables, the largest row
+    degree of the Gauss-Newton product's scatter plan."""
+    from ltm_torch.graph import solver
+
+    h = g.host
+    plan = solver._scatters(g).ends
+    deg = (plan.rowptr[1:] - plan.rowptr[:-1]).cpu().numpy()
+    st = {"variables": g.num_vars, "fixed": int(h["fixed"].sum())}
+    for fam in ("prior", "bet", "anc"):
+        st[fam] = [int(h[f"{fam}_valid"].shape[0]), int(h[f"{fam}_valid"].sum())]
+    st["ends"] = st["prior"][0] + 2 * st["bet"][0] + 4 * st["anc"][0]
+    st["valid_ends"] = st["prior"][1] + 2 * st["bet"][1] + 4 * st["anc"][1]
+    st["max_degree"], st["rows_of_degree_0"] = int(deg.max()), int((deg == 0).sum())
+    return st
+
+
+class MarginalsProbe:
+    """Measures each call of LT-SLAM's ``marginal_covariance`` in a run (the
+    RS loops' marginals, ``slam/pipeline.py``) by parts (``measure``); keeps
+    the last call's arguments (``marginals_turns``)."""
+
+    def __init__(self):
+        import importlib
+
+        self.pipeline = importlib.import_module("ltm_torch.slam.pipeline")
+        self.fn = self.pipeline.marginal_covariance
+        self.calls, self.args, self.pcg_args = [], None, None
+
+        def probed(g, poses, var_indices, *rest, **kw):
+            self.args = (g, poses, var_indices)
+            out, st = self.measure(self.fn, g, poses, var_indices, *rest, **kw)
+            self.calls.append(st)
+            return out
+
+        self.pipeline.marginal_covariance = probed
+
+    def measure(self, fn, g, poses, var_indices, *rest, **kw):
+        """``fn(g, poses, var_indices, ...)`` (a ``marginal_covariance``)
+        and its parts: M and the lanes, the iterations each lane ran (max,
+        median, min) and the lanes that reached the tolerance, the call's
+        wall (a sync at each end) split into the set-up (Jacobians, the
+        preconditioner's factor, the right-hand sides), the PCG's first eager
+        iteration with its host read, the graph's capture, the replays (with
+        their host reads) and what follows, the call's peak memory above its
+        inputs, the graph's shape.  ``pcg_args`` keeps its PCG's arguments
+        (``pcg_iteration_profile``)."""
+        import torch
+
+        from ltm_torch.graph import solver
+
+        stamps, stats, real_pcg, real_graph = {}, {}, solver._pcg, torch.cuda.CUDAGraph
+        replays = [0]
+
+        def pcg(hvp, b, apply_prec, g, iters, tol, *rest, **kw):
+            self.pcg_args = (hvp, b, apply_prec, g)
+            stamps["pcg_start"] = time.perf_counter()
+            x, res = real_pcg(hvp, b, apply_prec, g, iters, tol, *rest, stats=stats, **kw)
+            stamps["pcg_end"] = time.perf_counter()
+            stats.update(residual=res, tol=tol)
+            return x, res
+
+        def stamped_graph():
+            graph = real_graph()
+            stamps["graph_made"] = time.perf_counter()   # the first iteration's read is done
+            replay = graph.replay
+
+            def stamped():
+                stamps.setdefault("first_replay", time.perf_counter())   # captured
+                replays[0] += 1
+                replay()
+            graph.replay = stamped
+            return graph
+
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        solver._pcg, torch.cuda.CUDAGraph = pcg, stamped_graph
+        t0 = time.perf_counter()
+        try:
+            out = fn(g, poses, var_indices, *rest, **kw)
+            torch.cuda.synchronize()
+        finally:
+            solver._pcg, torch.cuda.CUDAGraph = real_pcg, real_graph
+        t1 = time.perf_counter()
+        it = stats["iterations"].cpu().numpy()
+        made, first = stamps.get("graph_made", t1), stamps.get("first_replay", t1)
+        return out, {
+            "M": len(var_indices), "lanes": 6 * len(var_indices),
+            "iterations_max": int(it.max()), "iterations_median": float(np.median(it)),
+            "iterations_min": int(it.min()),
+            "lanes_reached_tol": int((stats["residual"] <= stats["tol"]).sum()),
+            "wall_s": t1 - t0, "setup_s": stamps["pcg_start"] - t0,
+            "first_eager_iteration_s": made - stamps["pcg_start"], "capture_s": first - made,
+            "replays": replays[0], "replays_s": stamps["pcg_end"] - first,
+            "after_pcg_s": t1 - stamps["pcg_end"],
+            "peak_above_inputs_bytes": torch.cuda.max_memory_allocated() - base,
+            "graph": graph_shape(g)}
+
+    def restore(self):
+        self.pipeline.marginal_covariance = self.fn
+
+
+def marginals_turns(probe, order=("old", "kernel", "kernel", "old")):
+    """The probe's last ``marginal_covariance`` call run again through each
+    route in turns ("old": ``old_gn_route``, the product's route before
+    K5c; "kernel": the solver as it is, K5c), each measured by parts
+    (``MarginalsProbe.measure``); the largest difference between the
+    routes' results over their largest entry; a graph-replayed PCG
+    iteration of each route by kernel (``pcg_iteration_profile``, 5
+    replays; every lane runs)."""
+    from ltm_torch.graph import solver
+
+    g, poses, var = probe.args
+    turns, results, pcgs = [], {}, {}
+    for route in order:
+        with old_gn_route() if route == "old" else contextlib.nullcontext():
+            out, st = probe.measure(solver.marginal_covariance, g, poses, var)
+        pcgs.setdefault(route, probe.pcg_args)
+        results.setdefault(route, out)
+        st.pop("graph")
+        turns.append(dict(route=route, **st))
+    st = {"order": list(order), "turns": turns,
+          "wall_s": {r: [t["wall_s"] for t in turns if t["route"] == r] for r in results},
+          "pcg_iteration_profile": {}}
+    if len(results) == 2:
+        a, b = results.values()
+        st["max_abs_diff_over_max"] = float((a - b).abs().max() / b.abs().max())
+    for route, args in pcgs.items():        # each PCG's product is its route's
+        st["pcg_iteration_profile"][route] = pcg_iteration_profile(args, replays=5)
+    return st
+
+
+def gn_counts():
+    from ltm_torch.kernels import gn_product
+
+    return gn_product.gn_product.launches
+
+
+def set_gn_counts(value=0):
+    from ltm_torch.kernels import gn_product
+
+    gn_product.gn_product.launches = value
+
+
+def gn_bound(jac, plan, v):
+    """(bound_ms, bound_by) of one Gauss-Newton product: the larger of its
+    operations at the FP32 (FP64) peak, 144 a valid factor end and lane (72
+    for ``J v``, 72 for ``Jᵀ y``), and its bytes at the HBM rate: each valid
+    end's block and index and plan entry, ``v`` and the output once, the
+    plan's row pointers and the fixed flags.  Invalid factors (zero blocks,
+    left out of the plan) count for nothing."""
+    import torch
+
+    ends = int(plan.ends.cols.shape[0])
+    size = v.element_size()
+    V = v.shape[-2]
+    ops = 144.0 * ends * (v.numel() // (6 * V))
+    nbytes = ends * (36 * size + 8) + 2 * v.numel() * size + 4 * (V + 1) + V
+    rate = H100_FP32_FLOPS if v.dtype == torch.float32 else H100_FP64_FLOPS
+    t_ops, t_bytes = ops / rate, nbytes / H100_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def compare_gn(name, jac, plan, v, lam, timed=False):
+    """K5c on one product: the kernel twice (the same bits) and captured in
+    a CUDA graph (the eager bits), held to ``gn_product_plain`` on the same
+    inputs bit for bit.  With ``timed``: the kernel's ms by CUDA events
+    (median of 5, the wrapper's host work included), a call's ms in a CUDA
+    graph (``graph_replay_ms``; each kernel's device ms is in
+    ``pcg_iteration_profile``), the plain version's ms (once), the route before K5c
+    (``old_product``) eager and in a graph, the bound (``gn_bound``) and the
+    peak memory above the inputs of a call of each route.  The launch count
+    is restored."""
+    import torch
+
+    from ltm_torch.kernels.gn_product import gn_product, gn_product_plain
+
+    saved = gn_counts()
+    scratch = {}
+    try:
+        got = gn_product(jac, plan, v, lam, scratch)
+        again = gn_product(jac, plan, v, lam, scratch)
+        graphed = captured(lambda: (gn_product(jac, plan, v, lam, scratch),))[0]
+        plain = gn_product_plain(jac, plan, v, lam)
+        torch.cuda.synchronize()
+        differ, repeat = int((got != plain).sum()), int((got != again).sum())
+        graph = int((graphed != got).sum())
+        err = float((got.double() - plain.double()).abs().max())
+        if differ or repeat or graph:
+            raise AssertionError(f"K5c {name}: {differ} entries differ from the plain version "
+                                 f"(largest {err}), {repeat} between launches, {graph} between "
+                                 "a captured and an eager call")
+        lanes = v.numel() // (6 * v.shape[-2])
+        st = {"case": name, "dtype": str(v.dtype).split(".")[-1], "lanes": lanes,
+              "variables": v.shape[-2],
+              "factors": [plan.idx[0].shape[0], plan.idx[1].shape[0], plan.idx[3].shape[0]],
+              "ends": sum(i.shape[0] for i in plan.idx), "valid_ends": int(plan.ends.cols.shape[0]),
+              "max_degree": plan.ends.table.shape[1], "differ": differ, "repeat_differ": repeat,
+              "captured_differ": graph, "max_abs_err": err}
+        if timed:
+            old = old_product(jac, plan, lam)
+            kernel = lambda: gn_product(jac, plan, v, lam, scratch)     # noqa: E731
+            bound_ms, bound_by = gn_bound(jac, plan, v)
+
+            def peak(fn):
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                fn()
+                torch.cuda.synchronize()
+                return torch.cuda.max_memory_allocated() - base
+
+            st.update(ms=cuda_ms(kernel, reps=5), graph_replay_ms=graph_replay_ms(kernel),
+                      plain_ms=cuda_ms(lambda: gn_product_plain(jac, plan, v, lam), reps=1),
+                      old_route_ms=cuda_ms(lambda: old(v), reps=5),
+                      old_route_graph_replay_ms=graph_replay_ms(lambda: old(v), calls=5),
+                      bound_ms=bound_ms, bound_by=bound_by,
+                      peak_above_inputs_bytes=peak(kernel),
+                      old_route_peak_above_inputs_bytes=peak(lambda: old(v)),
+                      scratch_bytes=sum(t.numel() * t.element_size() for t in scratch.values()))
+    finally:
+        set_gn_counts(saved)
+    return st
+
+
+# phase 8's pose graph as the RS run's marginals see it (the probe's log,
+# PERF.md §5): variables, (priors, between factors, anchored factors) and
+# how many of each are valid, the marginals' lanes (6 M, M = 127)
+SLAM_GRAPH = dict(n_vars=1026, n_fac=(4, 24812, 1016), valid=(1, 24804, 489), marginal_lanes=762)
+
+
+def gn_cases(dev):
+    """Phase 2, K5c: random graphs (``kernels.gn_product.random_gn_case``) of
+    phase 8's shape (``SLAM_GRAPH``) at 1, 4 and 120 lanes and at the RS
+    marginals' lanes (timed at 1 and at the marginals' lanes), and small
+    graphs with invalid factors, fixed variables, a row of degree 0 and
+    anchored factors whose anchors coincide, at 1, 2, 3 and 7 lanes, float32
+    and float64, each through ``compare_gn``."""
+    import torch
+
+    from ltm_torch.kernels.gn_product import random_gn_case
+
+    rng = np.random.default_rng(43)
+    out = []
+    V, counts = SLAM_GRAPH["n_vars"], SLAM_GRAPH["n_fac"]
+    valid = [v / max(n, 1) for v, n in zip(SLAM_GRAPH["valid"], counts)]
+    for lanes in sorted({1, 4, 120, SLAM_GRAPH["marginal_lanes"]}):
+        case = random_gn_case(rng, V, counts, (lanes,), torch.float32, dev, valid=valid)
+        out.append(compare_gn(f"slam_shape_{lanes}_lanes", *case,
+                              timed=lanes in (1, SLAM_GRAPH["marginal_lanes"])))
+    for dtype in (torch.float32, torch.float64):
+        for lanes in ((), (2,), (3,), (7,)):
+            case = random_gn_case(rng, 40, (3, 45, 30), lanes, dtype, dev, valid=0.7,
+                                  coincide=5)
+            out.append(compare_gn(f"edges_{len(lanes) and lanes[0]}_lanes", *case))
+    for st in out:
+        log(f"[2] gn_product (K5c) {json.dumps(st)}")
+    return out
+
+
+class GnCheck:
+    """Holds every eager call of the solver's Gauss-Newton product in a run
+    (``graph.solver``'s ``gn_product``, K5c) to ``gn_product_plain`` on the
+    same inputs bit for bit as it happens; a call inside a CUDA graph's
+    capture is counted and runs unchecked (its replays are that captured
+    launch).  Keeps the last one-lane call and the call with the most lanes
+    (their inputs).  The comparisons launch nothing."""
+
+    def __init__(self):
+        from ltm_torch.graph import solver
+
+        self.mod, self.fn = solver, solver.gn_product
+        self.stats = {"calls": 0, "checked": 0, "captured": 0, "differ": 0, "max_abs_err": 0.0,
+                      "lanes": {}}
+        self.one_lane = self.widest = None
+        solver.gn_product = self._checked
+
+    def _checked(self, jac, plan, v, lam, scratch):
+        import torch
+
+        from ltm_torch.kernels.gn_product import gn_product_plain
+
+        out = self.fn(jac, plan, v, lam, scratch)
+        st = self.stats
+        st["calls"] += 1
+        if torch.cuda.is_current_stream_capturing():
+            st["captured"] += 1
+            return out
+        plain = gn_product_plain(jac, plan, v, lam)
+        differ = int((out != plain).sum())
+        st["checked"] += 1
+        st["differ"] += differ
+        st["max_abs_err"] = max(st["max_abs_err"], float((out.double() - plain.double()).abs().max()))
+        if differ:
+            raise AssertionError(f"K5c call {st['calls']}: {differ} entries differ from the plain "
+                                 "version")
+        lanes = v.numel() // (6 * v.shape[-2])
+        st["lanes"][str(lanes)] = st["lanes"].get(str(lanes), 0) + 1
+        keep = (tuple(J.clone() for J in jac), plan, v.clone(), lam.clone())
+        if lanes == 1:
+            self.one_lane = keep
+        if self.widest is None or lanes >= self.widest[2].numel() // (6 * v.shape[-2]):
+            self.widest = keep
+        return out
+
+    def restore(self):
+        self.mod.gn_product = self.fn
+
+
 # ---- K2 and K3, the visibility sweeps --------------------------------------
 
 SWEEP_FOV = (50.0, 360.0)
@@ -2738,7 +3118,8 @@ class HotLoops:
                ("sc_distance_matrix", "ltm_torch.retrieval.scancontext", "sc_distance_matrix"),
                ("polar_bin_scatter_max", "ltm_torch.kernels.polar_bin", "make_descriptors"),
                ("tridiag_factor", "ltm_torch.graph.solver", "_tridiag_factor"),
-               ("tridiag_apply", "ltm_torch.graph.solver", "_tridiag_apply"))
+               ("tridiag_apply", "ltm_torch.graph.solver", "_tridiag_apply"),
+               ("gn_product", "ltm_torch.graph.solver", "gn_product"))
 
     def __init__(self, timed=False):
         import importlib
@@ -2788,7 +3169,8 @@ def hot_loop_bound_s(name, args) -> float:
     """The least time the card could take for one hot-loop call: the larger
     of its bytes (inputs read once, outputs written once) at the HBM rate
     and its FP32 operations at the non-tensor peak, from the call's shapes
-    (the 1-NN: 8 flops a valid pair; the sweeps: ``tridiag_bound``)."""
+    (the 1-NN: 8 flops a valid pair; the sweeps: ``tridiag_bound``; the
+    Gauss-Newton product: ``gn_bound``)."""
     if name == "icp_1nn":
         q, qm, t, tm = args[:4]
         ops = 8.0 * float((qm.sum(-1).double() * tm.sum(-1).double()).sum())
@@ -2803,6 +3185,8 @@ def hot_loop_bound_s(name, args) -> float:
         nbytes = xyz.numel() * 4 + mask.numel() + xyz.shape[0] * 20 * 60 * 4
     elif name == "tridiag_factor":                     # (D, L, chains)
         return tridiag_bound("factor", (*args[:2], args[2].pos))[0] / 1e3
+    elif name == "gn_product":                         # (jac, plan, v, lam, scratch)
+        return gn_bound(*args[:3])[0] / 1e3
     else:                                              # (Cinv, Lc, P, chains, r)
         return tridiag_bound("apply", (args[0], args[1], args[3].pos, args[4]))[0] / 1e3
     return max(ops / H100_FP32_FLOPS, nbytes / H100_BYTES_PER_S)
@@ -2926,16 +3310,17 @@ def phase_slam_full_width():
 
     runs = []
     scatter_calls = {}
-    sweeps = pcg = None
+    sweeps = pcg = gn = None
     for i in range(2):   # run 0 warms up, recording the scatter-sums and the last PCG and
-        if i == 1:       # checking each 1-NN call and each eager sweep
+        if i == 1:       # checking each 1-NN call, each eager sweep and each eager product
             torch.cuda.reset_peak_memory_stats()
         fixed_order_sum.launches = 0
         set_nn_counts()
         set_tridiag_counts()
+        set_gn_counts()
         farm = NnFarmCheck() if i == 0 else None
         if i == 0:
-            sweeps, pcg = TridiagCheck(), PcgRecorder()
+            sweeps, pcg, gn = TridiagCheck(), PcgRecorder(), GnCheck()
         hot = HotLoops()
         solver.fixed_order_sum = scatter_recorder(scatter_calls) if i == 0 else fixed_order_sum
         try:
@@ -2943,7 +3328,7 @@ def phase_slam_full_width():
         finally:
             hot.restore()
             if i == 0:
-                for check in (farm, sweeps, pcg):
+                for check in (gn, pcg, sweeps, farm):
                     check.restore()
             solver.fixed_order_sum = fixed_order_sum
         st["run"] = i
@@ -2957,6 +3342,18 @@ def phase_slam_full_width():
             "eager_launches": st["tridiag_launches"]["apply"],
             "captured": hot.captured["tridiag_apply"], "pcg_replays": replays,
             "executions": st["tridiag_launches"]["apply"] - hot.captured["tridiag_apply"] + replays}
+        # the product runs once a PCG iteration: a PCG's iterations are its
+        # host reads less one (each PCG factors its preconditioner once)
+        st["gn_launches"] = gn_counts()
+        st["gn_product_runs"] = {
+            "eager_launches": st["gn_launches"], "captured": hot.captured["gn_product"],
+            "pcg_replays": replays,
+            "executions": st["gn_launches"] - hot.captured["gn_product"] + replays,
+            "pcg_iterations": st["host_reads"]["pcg"] - st["tridiag_launches"]["factor"]}
+        if (st["gn_launches"] != st["hot_loop_calls"]["gn_product"] or st["gn_launches"] <= 0
+                or st["gn_product_runs"]["executions"] != st["gn_product_runs"]["pcg_iterations"]):
+            raise AssertionError(f"K5c: {st['hot_loop_calls']['gn_product']} calls, "
+                                 f"{json.dumps(st['gn_product_runs'])}")
         if fixed_order_sum.launches <= 0:
             raise AssertionError("LT-SLAM launched no fixed-order scatter-sum")
         if st["nn_launches"] != st["hot_loop_calls"]["icp_1nn"]:
@@ -2972,6 +3369,10 @@ def phase_slam_full_width():
                 raise AssertionError(f"the farm check saw {farm.stats['calls']} of "
                                      f"{st['nn_launches']} 1-NN calls")
         if i == 0:
+            st["gn_check"] = gn.stats
+            if gn.stats["calls"] != st["gn_launches"] or not gn.stats["checked"]:
+                raise AssertionError(f"the product check saw {gn.stats['calls']} of "
+                                     f"{st['gn_launches']} calls")
             st["tridiag_check"], st["tridiag_layout"] = sweeps.stats, sweeps.layout
             for which, cs in sweeps.stats.items():
                 if cs["calls"] != st["tridiag_launches"][which] or not cs["checked"]:
@@ -3001,9 +3402,15 @@ def phase_slam_full_width():
     tridiag_largest = compare_tridiag("phase8_largest", *sweeps.largest["factor"],
                                       sweeps.largest["apply"][3], timed=True)
     log(f"[8] K5a at phase 8's largest calls: {json.dumps(tridiag_largest)}")
+    gn_lm = compare_gn("phase8_lm", *gn.one_lane, timed=True)
+    log(f"[8] K5c at the LM's call: {json.dumps(gn_lm)}")
     pcg_profile = {"kernel": pcg_iteration_profile(pcg.args)}
     with plain_sweeps():
         pcg_profile["plain"] = pcg_iteration_profile(pcg.args)
+    # the same PCG with the product through the route before K5c
+    pcg_profile["old_product"] = pcg_iteration_profile((old_product(*gn.one_lane[:2],
+                                                                    gn.one_lane[3]),
+                                                        *pcg.args[1:]))
     log(f"[8] a graph-replayed PCG iteration, by kernel: {json.dumps(pcg_profile)}")
 
     hot = HotLoops(timed=True)     # the PCG replays its graph: the sweeps run eagerly outside it
@@ -3023,10 +3430,23 @@ def phase_slam_full_width():
 
     cfg = LTSlamConfig()
     cfg.num_rs_loops_upper_bound = 10
-    _, res, rs = slam_run(cfg, bundle)
+    probe = MarginalsProbe()
+    gn_rs = GnCheck()
+    set_gn_counts()
+    try:
+        _, res, rs = slam_run(cfg, bundle)
+    finally:
+        gn_rs.restore()
+        probe.restore()
+    rs["gn_launches"], rs["gn_check"] = gn_counts(), gn_rs.stats
     log(f"[8] RS loops (num_rs_loops_upper_bound=10): {json.dumps(rs)}")
     if rs["ate_rmse_m"] > ATE_BOUND or res.num_rs_loops <= 0:
         raise AssertionError(f"RS run: ATE {rs['ate_rmse_m']} m, {res.num_rs_loops} RS loops")
+    if not probe.calls:
+        raise AssertionError("the RS run computed no marginals")
+    marginals = {"calls": probe.calls, "turns": marginals_turns(probe),
+                 "product": compare_gn("phase8_marginals", *gn_rs.widest, timed=True)}
+    log(f"[8] the RS run's marginals by parts, and in turns: {json.dumps(marginals)}")
     noisy_b = make_two_sessions(odom_noise=4e-3, **SLAM_WIDTH)
     _, _, noisy = slam_run(LTSlamConfig(), noisy_b)
     log(f"[8] odom_noise=4e-3: {json.dumps(noisy)}")
@@ -3049,7 +3469,9 @@ def phase_slam_full_width():
         "median_keyframes_per_s": statistics.median(r["keyframes_per_s"] for r in timed),
         "median_wall_s": statistics.median(r["wall_s"] for r in timed),
         "ate_rmse_m": [r["ate_rmse_m"] for r in timed], "sc_loops": timed[-1]["sc_loops"],
-        "rs_run": {k: rs[k] for k in ("ate_rmse_m", "rs_loops", "wall_s", "stages_s")},
+        "rs_run": {k: rs[k] for k in ("ate_rmse_m", "rs_loops", "wall_s", "stages_s",
+                                      "gn_launches", "gn_check")},
+        "rs_marginals": marginals,
         "noisy_run": {k: noisy[k] for k in ("ate_rmse_m", "sc_loops", "wall_s")},
         "stages_s": timed[-1]["stages_s"],
         "icp_iterations_min_p50_p90_max": timed[-1]["icp_iterations_min_p50_p90_max"],
@@ -3062,6 +3484,10 @@ def phase_slam_full_width():
         "max_memory_allocated_bytes": peak,
         "tridiag_launches_per_run": {w: [r["tridiag_launches"][w] for r in timed]
                                      for w in ("factor", "apply")},
+        "gn_launches_per_run": [r["gn_launches"] for r in timed],
+        "gn_product_runs": timed[-1]["gn_product_runs"],
+        "gn_check": runs[0]["gn_check"],
+        "gn_lm_call": gn_lm,
         "tridiag_apply_runs": timed[-1]["tridiag_apply_runs"],
         "tridiag_check": runs[0]["tridiag_check"],
         "tridiag_layout": runs[0]["tridiag_layout"],
@@ -4330,13 +4756,54 @@ def pose_log_gap(a, b) -> float:
     return float(se3.log(se3.between(a, b)).abs().max())
 
 
+def fixed_step_pair(g, mesh, cfg, one):
+    """The one-device solve and the schur-mode mesh solve of ``g``, each
+    driven the one-device solve's number of LM steps (``one``'s
+    ``iterations``) through its step function (``graph/solver.py::_lm_step``,
+    ``dist/solver.py::_lm_step_schur``) in a loop of this script's own, so
+    neither stops where its host stall exit would: the largest |se3
+    log(between)| of the two and both costs; the one-device loop must give
+    ``one``'s poses bit for bit (the same steps)."""
+    import functools
+
+    import torch
+
+    from ltm_torch.dist import solver as dsolver
+    from ltm_torch.graph import solver
+
+    steps = one[1].iterations
+
+    def drive(step, poses, cost):
+        lam = torch.full((), cfg.lambda_init, dtype=poses.dtype, device=poses.device)
+        for _ in range(steps):
+            poses, lam, cost, _, _ = step(poses, lam, cost)
+        return poses, cost
+
+    chains = solver._chains(g)
+    one_poses, one_cost = drive(lambda p, lam, c: solver._lm_step(g, p, lam, c, cfg, chains),
+                                g.poses0, solver._cost(g, g.poses0, cfg.cauchy_k))
+    gp = dsolver.pad_graph_for_mesh(g, mesh.size)
+    lead = dsolver._on(gp, mesh.lead)
+    slots = dsolver._slot_graphs(gp, mesh)
+    step = functools.partial(dsolver._lm_step_schur, lead, slots, mesh, solver._chains(lead), cfg)
+    mesh_poses, mesh_cost = drive(step, lead.poses0,
+                                  dsolver._mesh_cost(slots, mesh, lead.poses0, cfg.cauchy_k))
+    st = {"lm_steps": steps, "max_pose_log": pose_log_gap(one_poses, mesh_poses),
+          "cost_final": [float(one_cost), float(mesh_cost)],
+          "one_device_equals_solve": torch.equal(one_poses, one[0])}
+    if not st["one_device_equals_solve"]:
+        raise AssertionError(f"{steps} one-device LM steps differ from the solve's: {st}")
+    return st
+
+
 def solve_pair(tag, g, mesh, cfg, one, pose_gate=True):
     """``solve_sharded`` on ``mesh`` against ``one``, the one-device
     ``timed_solve`` of the same graph: both walls, LM steps and CG
     residuals, the largest |se3 log(between)|, held to ``SOLVE_GATE`` (the
     final cost only, with ``pose_gate=False``); the sharded run's
-    collectives, and the sharded solve once more against itself (its
-    repeat)."""
+    collectives, the sharded solve once more against itself (its repeat)
+    and, in schur mode, both at the one-device solve's number of LM steps
+    (``fixed_step_pair``; logged, not gated)."""
     from ltm_torch.dist import solve_sharded
 
     (poses, info, secs), colls = counted_collectives(
@@ -4350,6 +4817,8 @@ def solve_pair(tag, g, mesh, cfg, one, pose_gate=True):
           "cg_residual": [float(info_one.cg_residual), float(info.cg_residual)],
           "cost_final": [cost_one, cost], "max_pose_log": err, "pose_gated": pose_gate,
           "repeat_max_pose_log": pose_log_gap(poses, again), "collectives": colls}
+    if cfg.dist_mode == "schur":        # beside the gate, at one fixed number of LM steps
+        st["fixed_steps"] = fixed_step_pair(g, mesh, cfg, one)
     log(f"[14a] solve_sharded {tag}: {json.dumps(st)}")
     if not ((err < SOLVE_GATE["pose_log"] or not pose_gate)
             and abs(cost - cost_one) <= SOLVE_GATE["cost_rtol"] * abs(cost_one)):
@@ -4723,6 +5192,7 @@ def main() -> int:
     nn_phase2 = nn_cases(dev)
     k5a_phase2 = tridiag_cases(dev)
     k5a_recip = recip_check(dev)
+    gn_phase2 = gn_cases(dev)
 
     cfg = RemovertConfig()
     cfg.downsample_voxel_size = 0.1
@@ -5024,6 +5494,47 @@ def main() -> int:
             "marginals_shape_graph_replay_ms": marginals[which]["graph_replay_ms"],
             "cases": len(k5a_phase2),
         })
+    gn8, gn_rs = fw["gn_lm_call"], fw["rs_marginals"]["product"]
+    gn_cases_all = gn_phase2 + [gn8, gn_rs]
+    kernels.append({
+        "name": "gn_product (K5c, the solver's Gauss-Newton product)",
+        "route": "cuda",
+        "route_kernels": ["gn_factors<float|double> (a CTA a tile of 32 factors of one family: "
+                          "their blocks staged in shared memory once, a thread a (factor, "
+                          "lane) writing y_f = sum of J_e v over the factor's ends into a "
+                          "(factors, lanes, 6) scratch)",
+                          "gn_rows<float|double>, below 16 lanes (a warp a (row, tile of "
+                          "lanes), rows highest degree first: five (lane, end) slots of six "
+                          "threads, J_e^T y a column a thread, added in the plan's order "
+                          "through shuffles, then + lambda v)",
+                          "gn_rows_wide<float|double>, from 16 lanes (a warp a (row, 32 "
+                          "lanes), a thread a lane with the row's six sums)"],
+        "source": "ltm_torch/csrc/gn_product.cu",
+        "replaces": "ltm/graph/solver.py:264",
+        "launches": fw["gn_launches_per_run"][-1],
+        "launches_path": "phase 8 (LTSlam.run, LTSlamConfig()): eager calls, the call each PCG "
+                         "captures included; its CUDA-graph replays launch without a count",
+        "runs_with_pcg_replays": fw["gn_product_runs"],
+        "rs_run_launches": fw["rs_run"]["gn_launches"],
+        "max_abs_err": max([fw["gn_check"]["max_abs_err"], fw["rs_run"]["gn_check"]["max_abs_err"]]
+                           + [st["max_abs_err"] for st in gn_cases_all]),
+        "max_abs_err_is": "against gn_product_plain on the same inputs (bit for bit: 0)",
+        "calls_checked_phase8_warmup": fw["gn_check"]["checked"],
+        "calls_checked_rs_run": fw["rs_run"]["gn_check"]["checked"],
+        "ms": gn8["ms"], "graph_replay_ms": gn8["graph_replay_ms"],
+        "plain_ms": gn8["plain_ms"], "bound_ms": gn8["bound_ms"], "bound_by": gn8["bound_by"],
+        "library_ms": None,
+        "library": "none: no PyTorch call computes this product",
+        "old_route_ms": gn8["old_route_ms"],
+        "old_route_graph_replay_ms": gn8["old_route_graph_replay_ms"],
+        "call": {k: gn8[k] for k in ("lanes", "variables", "factors", "ends", "valid_ends",
+                                     "max_degree", "dtype")},
+        "marginals_call": {k: gn_rs.get(k) for k in (
+            "lanes", "ms", "graph_replay_ms", "plain_ms", "old_route_ms",
+            "old_route_graph_replay_ms", "bound_ms", "bound_by", "peak_above_inputs_bytes",
+            "old_route_peak_above_inputs_bytes", "scratch_bytes")},
+        "cases": len(gn_phase2),
+    })
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"slam": slam}))

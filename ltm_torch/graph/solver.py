@@ -23,7 +23,10 @@ scatter-sum (``kernels.scatter``) over a plan built once a graph on the
 host: priors, then the between factors' ``i`` and ``j`` ends, then the
 anchored factors' four ends, each in factor order — ``index_add_``'s order
 on the CPU, whose bits it keeps, and on the card a sum that repeats bit for
-bit, where ``index_add_``'s atomics did not.
+bit, where ``index_add_``'s atomics did not.  The Gauss-Newton product
+takes that sum inside its own kernel on the card (K5c,
+``kernels/gn_product.py``: the factors' ``J v``, then each variable's
+``Jᵀ y`` in the plan's order), once a PCG iteration.
 
 The block-Thomas sweeps keep ``ltm``'s op sequence per variable.  They
 run over the independent chains of the graph side by side: a variable
@@ -50,6 +53,7 @@ from torch.func import jacfwd, vmap
 from ltm_torch.core import se3
 from ltm_torch.core.config import SolverConfig
 from ltm_torch.graph.factors import GraphData, robust_weights, total_cost, whitened_residuals
+from ltm_torch.kernels.gn_product import GnPlan, gn_product, gn_product_plain, plan_gn_product
 from ltm_torch.kernels.scatter import ScatterPlan, fixed_order_sum, plan_scatter
 from ltm_torch.kernels.tridiag import (tridiag_apply, tridiag_apply_plain, tridiag_factor,
                                       tridiag_factor_plain)
@@ -133,10 +137,6 @@ def _factor_jacobians(poses: torch.Tensor, g: GraphData, wb, wa) -> FactorJacobi
     return FactorJacobians(Jp, Jbi * wfac, Jbj * wfac, *(J * wafac for J in Ja))
 
 
-def _anc_pairs(jac: FactorJacobians, g: GraphData):
-    return ((jac.Jai, g.anc_i), (jac.Jaj, g.anc_j), (jac.Jaai, g.anc_ai), (jac.Jaaj, g.anc_aj))
-
-
 _FACTOR_ENDS = ("prior_idx", "bet_i", "bet_j", "anc_i", "anc_j", "anc_ai", "anc_aj")
 
 
@@ -146,10 +146,12 @@ class _Scatters(NamedTuple):
     (the between factors' ``j`` ends, then their ``i`` ends).  Invalid
     factors (zero Jacobian blocks, so zero contributions) and, in
     ``chain``, the between factors that join no adjacent pair (masked to
-    zero) are left out."""
+    zero) are left out.  ``product``: the Gauss-Newton product's plan
+    (``ends`` with the end index arrays and the fixed variables)."""
 
     ends: ScatterPlan
     chain: ScatterPlan
+    product: GnPlan
 
 
 def _scatters(g: GraphData) -> _Scatters:
@@ -163,9 +165,10 @@ def _scatters(g: GraphData) -> _Scatters:
         bi, bj = h["bet_i"].astype(np.int64), h["bet_j"].astype(np.int64)
         chain_keep = np.concatenate([h["bet_valid"] & (bj == bi + 1),
                                      h["bet_valid"] & (bi == bj + 1)])
+        ends = plan_scatter(np.concatenate([h[k] for k in _FACTOR_ENDS]), V, dev, keep)
         plans = _Scatters(
-            plan_scatter(np.concatenate([h[k] for k in _FACTOR_ENDS]), V, dev, keep),
-            plan_scatter(np.concatenate([h["bet_j"], h["bet_i"]]), V, dev, chain_keep))
+            ends, plan_scatter(np.concatenate([h["bet_j"], h["bet_i"]]), V, dev, chain_keep),
+            plan_gn_product(ends, [h[k] for k in _FACTOR_ENDS], h["fixed"], dev))
         object.__setattr__(g, "_scatters", plans)
     return plans
 
@@ -282,11 +285,6 @@ def _tridiag_apply(Cinv: torch.Tensor, Lc: torch.Tensor, P: torch.Tensor, ch: _C
     raise ValueError(f"_tridiag_apply runs on cuda or cpu, not {r.device}")
 
 
-def _fj(J: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Per-factor J @ v: (F,6,6), (..., F, 6) -> (..., F, 6)."""
-    return torch.matmul(J, v[..., None])[..., 0]
-
-
 def _ftj(J: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Per-factor Jᵀ @ y."""
     return torch.matmul(J.transpose(-1, -2), y[..., None])[..., 0]
@@ -299,25 +297,29 @@ def _grad_from_jacobians(jac: FactorJacobians, rp, rbw, raw, g: GraphData) -> to
 
 
 def _hvp_from_jacobians(jac: FactorJacobians, g: GraphData, lam):
-    """v ↦ (JᵀWJ + λI) v per factor: y_f = J_f v_{vars(f)}, then the
-    scatter-add of J_fᵀ y_f (v: (..., V, 6))."""
-
-    plan = _scatters(g).ends
+    """v ↦ (JᵀWJ + λI) v (v: (..., V, 6)), the Gauss-Newton product
+    (``kernels/gn_product.py``): per factor y_f = Σ_ends J_e v_{idx_e}, then
+    each variable's fixed-order sum of J_eᵀ y_f(e), plus λ v.  CPU tensors
+    take the plain version, CUDA tensors launch the kernel (K5c), its
+    scratch made at the first call for the lanes it is given (before the
+    PCG captures its iteration); any other device raises."""
+    plan = _scatters(g).product
+    scratch = {}
+    if jac.Jp.device.type == "cuda":
+        jac = tuple(J.contiguous() for J in jac)
 
     def hvp(v):
-        vf = _free(v, g)
-        yp = _fj(jac.Jp, vf[..., g.prior_idx, :])
-        yb = _fj(jac.Jbi, vf[..., g.bet_i, :]) + _fj(jac.Jbj, vf[..., g.bet_j, :])
-        ya = torch.zeros(v.shape[:-2] + (jac.Jai.shape[0], 6), dtype=v.dtype, device=v.device)
-        for J, idx in _anc_pairs(jac, g):
-            ya = ya + _fj(J, vf[..., idx, :])
-        ys = (yp, yb, yb, ya, ya, ya, ya)
-        return fixed_order_sum(_ends(lambda J, k: _ftj(J, ys[k]), jac), plan) + lam * v
+        if v.device.type == "cpu":
+            return gn_product_plain(jac, plan, v, lam)
+        if v.device.type == "cuda":
+            return gn_product(jac, plan, v, lam, scratch)
+        raise ValueError(f"the Gauss-Newton product runs on cuda or cpu, not {v.device}")
 
     return hvp
 
 
-def _pcg(hvp, b, apply_prec, g: GraphData, iters: int, tol: float, capture: bool = True):
+def _pcg(hvp, b, apply_prec, g: GraphData, iters: int, tol: float, capture: bool = True,
+         stats=None):
     """Preconditioned CG on (..., V, 6) right-hand sides; fixed variables
     masked out.  Leading dimensions are independent lanes: a lane stops
     (its state frozen) once its relative residual is at most ``tol``, as
@@ -329,7 +331,8 @@ def _pcg(hvp, b, apply_prec, g: GraphData, iters: int, tol: float, capture: bool
     kernel launch — and the vector updates) is captured once as a CUDA
     graph after one eager iteration and replayed: the same ops on the same buffers, without the host's launch
     cost.  ``capture=False`` runs every iteration eagerly (an ``hvp`` that
-    copies between devices or runs a collective)."""
+    copies between devices or runs a collective).  A ``stats`` dict gets
+    ``"iterations"``, the iterations each lane ran (int64, on the device)."""
 
     def apply_m(r):
         return _free(apply_prec(r), g)
@@ -390,6 +393,8 @@ def _pcg(hvp, b, apply_prec, g: GraphData, iters: int, tol: float, capture: bool
         count_host_read("pcg")
         more = bool(more_t)
     x, r = st[0], st[1]
+    if stats is not None:
+        stats["iterations"] = st[5]
     return x, torch.sqrt(dot(r, r)) / b_norm
 
 

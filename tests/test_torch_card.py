@@ -25,7 +25,13 @@ JAX) and without the CPU settings of ``pytest.ini``:
     the solve (which reads ``Cinv`` and ``P``) against the plain solve on
     ``Cinv`` and ``Lc``; ``Lc`` bit-equal to the plain gather; a second
     launch bit-equal; a call captured in a CUDA graph equal to the eager
-    call.
+    call;
+  * K5c, the solver's Gauss-Newton product (``csrc/gn_product.cu``), on
+    random pose graphs (``random_gn_case``: invalid factors, fixed
+    variables, a row of degree 0, anchored factors whose anchors coincide)
+    at 1, 2, 3, 7 and 120 lanes, float32 and float64: bit-equal to
+    ``gn_product_plain``, a second launch and a call captured in a CUDA
+    graph bit-equal to the first.
 
 ``chip_smoke.py`` runs the same checks at the pipeline's shapes.
 """
@@ -35,6 +41,7 @@ import pytest
 import torch
 
 from ltm_torch.kernels import nn_argmin
+from ltm_torch.kernels.gn_product import gn_product, gn_product_plain, random_gn_case
 from ltm_torch.kernels.knn import nn_sqdist_argmin, nn_sqdist_argmin_plain
 from ltm_torch.kernels.scatter import fixed_order_sum, fixed_order_sum_plain, plan_scatter
 from ltm_torch.kernels.tridiag import (card_rule, random_chain_system, tridiag_apply,
@@ -177,3 +184,25 @@ def test_tridiag_kernels_match_plain(dev, dtype, lanes):
     card_rule(Cinv, lambda *a: tridiag_factor_plain(*a)[0], (D, L, pos), 2)   # raises past it
     card_rule(P, lambda *a: tridiag_factor_plain(*a)[2], (D, L, pos), 2)
     card_rule(x, tridiag_apply_plain, (Cinv, Lc, pos, r), 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("lanes", [(), (2,), (3,), (7,), (120,)])
+def test_gn_product_kernel_matches_plain(dev, dtype, lanes):
+    rng = np.random.default_rng(len(lanes) and lanes[0])
+    jac, plan, v, lam = random_gn_case(rng, 300, (3, 700, 200), lanes, dtype, dev, valid=0.8,
+                                       coincide=7)
+    scratch = {}
+    before = gn_product.launches
+    got = gn_product(jac, plan, v, lam, scratch)
+    assert torch.equal(got, gn_product_plain(jac, plan, v, lam))
+    assert torch.equal(gn_product(jac, plan, v, lam, scratch), got)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = gn_product(jac, plan, v, lam, scratch)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, got)
+    assert gn_product.launches == before + 3

@@ -40,13 +40,22 @@ torch.set_num_threads(1)
 
 # ---- the solver's sums written with index_add_ -----------------------------------
 
+def _anc_pairs(jac, g):
+    return ((jac.Jai, g.anc_i), (jac.Jaj, g.anc_j), (jac.Jaai, g.anc_ai), (jac.Jaaj, g.anc_aj))
+
+
+def _fj(J, v):
+    """Per-factor J @ v: (F,6,6), (..., F, 6) -> (..., F, 6)."""
+    return torch.matmul(J, v[..., None])[..., 0]
+
+
 def _precond_sums_index_add(poses, g, jac, tridiag=False):
     V = g.num_vars
     blocks = torch.zeros((V, 6, 6), dtype=poses.dtype, device=poses.device)
     blocks.index_add_(0, g.prior_idx, tsolver._gram(jac.Jp))
     blocks.index_add_(0, g.bet_i, tsolver._gram(jac.Jbi))
     blocks.index_add_(0, g.bet_j, tsolver._gram(jac.Jbj))
-    for J, idx in tsolver._anc_pairs(jac, g):
+    for J, idx in _anc_pairs(jac, g):
         blocks.index_add_(0, idx, tsolver._gram(J))
     L = None
     if tridiag:
@@ -65,7 +74,7 @@ def _grad_index_add(jac, rp, rbw, raw, g):
     grad.index_add_(0, g.prior_idx, tsolver._ftj(jac.Jp, rp))
     grad.index_add_(0, g.bet_i, tsolver._ftj(jac.Jbi, rbw))
     grad.index_add_(0, g.bet_j, tsolver._ftj(jac.Jbj, rbw))
-    for J, idx in tsolver._anc_pairs(jac, g):
+    for J, idx in _anc_pairs(jac, g):
         grad.index_add_(0, idx, tsolver._ftj(J, raw))
     return grad
 
@@ -74,15 +83,15 @@ def _hvp_index_add(jac, g, lam):
     def hvp(v):
         vf = tsolver._free(v, g)
         out = torch.zeros_like(v)
-        yp = tsolver._fj(jac.Jp, vf[..., g.prior_idx, :])
+        yp = _fj(jac.Jp, vf[..., g.prior_idx, :])
         out.index_add_(-2, g.prior_idx, tsolver._ftj(jac.Jp, yp))
-        yb = tsolver._fj(jac.Jbi, vf[..., g.bet_i, :]) + tsolver._fj(jac.Jbj, vf[..., g.bet_j, :])
+        yb = _fj(jac.Jbi, vf[..., g.bet_i, :]) + _fj(jac.Jbj, vf[..., g.bet_j, :])
         out.index_add_(-2, g.bet_i, tsolver._ftj(jac.Jbi, yb))
         out.index_add_(-2, g.bet_j, tsolver._ftj(jac.Jbj, yb))
         ya = torch.zeros(v.shape[:-2] + (jac.Jai.shape[0], 6), dtype=v.dtype, device=v.device)
-        for J, idx in tsolver._anc_pairs(jac, g):
-            ya = ya + tsolver._fj(J, vf[..., idx, :])
-        for J, idx in tsolver._anc_pairs(jac, g):
+        for J, idx in _anc_pairs(jac, g):
+            ya = ya + _fj(J, vf[..., idx, :])
+        for J, idx in _anc_pairs(jac, g):
             out.index_add_(-2, idx, tsolver._ftj(J, ya))
         return out + lam * v
 
