@@ -60,12 +60,15 @@ sm_90a), then runs fourteen phases, each of which raises on failure:
      reciprocal (``rcp.approx.ftz.f64`` and a Newton step) within one ulp
      of IEEE ``1/x`` on 2^22 values (``recip_check``); K5c, the solver's
      Gauss-Newton product (``csrc/gn_product.cu``), on random graphs of
-     phase 8's shape at 1, 4, 120 and 762 lanes (the RS marginals' 6 M) and
-     on small graphs with invalid factors, fixed variables, a row of degree
-     0 and anchored factors whose anchors coincide, float32 and float64:
-     each launched twice and captured in a CUDA graph, bit-equal to
-     ``gn_product_plain`` (``gn_cases``), the one-lane and the marginals'
-     shapes timed against the bound and the route before K5c;
+     phase 8's shape at 1, 4, 120 and 762 lanes (the RS marginals' 6 M), on
+     small graphs with invalid factors, fixed variables, a row of degree
+     0 and anchored factors whose anchors coincide, float32 and float64,
+     and on small graphs whose anchor rows sit at the rows kernel's heavy
+     threshold, one either side of it and over two of its chunks, at 1, 4,
+     40 and 762 lanes: each launched twice and captured in a CUDA graph,
+     bit-equal to ``gn_product_plain`` (``gn_cases``), the one-lane and the
+     marginals' shapes timed, by kernel too, against the bound, the no-FMA
+     contract floor and the route before K5c;
   3. card vs CPU: ``Removerter.run`` on a small synthetic survey on the CPU
      (plain versions) and on the card (kernels); the 14 named point sets
      agree within max(2, 1e-4·|set|) points;
@@ -1949,12 +1952,15 @@ def set_gn_counts(value=0):
 
 
 def gn_bound(jac, plan, v):
-    """(bound_ms, bound_by) of one Gauss-Newton product: the larger of its
-    operations at the FP32 (FP64) peak, 144 a valid factor end and lane (72
-    for ``J v``, 72 for ``Jᵀ y``), and its bytes at the HBM rate: each valid
-    end's block and index and plan entry, ``v`` and the output once, the
-    plan's row pointers and the fixed flags.  Invalid factors (zero blocks,
-    left out of the plan) count for nothing."""
+    """(bound_ms, bound_by, contract_floor_ms) of one Gauss-Newton product:
+    the larger of its operations at the FP32 (FP64) peak, 144 a valid
+    factor end and lane (72 for ``J v``, 72 for ``Jᵀ y``), and its bytes at
+    the HBM rate: each valid end's block and index and plan entry, ``v`` and
+    the output once, the plan's row pointers and the fixed flags; and the
+    least ms under the kernel's own contract (every product and sum
+    rounded, no FMA, no tensor cores): each operation one instruction, so
+    the operations at half the FMA-counted peak.  Invalid factors (zero
+    blocks, left out of the plan) count for nothing."""
     import torch
 
     ends = int(plan.ends.cols.shape[0])
@@ -1964,7 +1970,22 @@ def gn_bound(jac, plan, v):
     nbytes = ends * (36 * size + 8) + 2 * v.numel() * size + 4 * (V + 1) + V
     rate = H100_FP32_FLOPS if v.dtype == torch.float32 else H100_FP64_FLOPS
     t_ops, t_bytes = ops / rate, nbytes / H100_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            1e3 * ops / (rate / 2))
+
+
+def gn_device_ms(fn, call_ms, calls=20):
+    """Device ms a call of ``fn`` by kernel: one replay of a CUDA graph of
+    ``calls`` calls (``capture``, as the PCG pays them) under
+    ``device_profile``, over ``calls``.  The kernels of a call sum to about
+    its ``call_ms`` in a graph, or past it where they overlap (the rows pass
+    starts before the factors pass ends); a sum under nine tenths of it
+    means the profiler lost kernels, as it did late in a full run, and
+    reads "not measured"."""
+    graph, _ = capture(fn, calls)
+    prof = device_profile(graph.replay, top=None)
+    per = {k: v / calls for k, v in prof["top_device_ms"].items()}
+    return per if sum(per.values()) >= 0.9 * call_ms else "not measured"
 
 
 def compare_gn(name, jac, plan, v, lam, timed=False):
@@ -1972,11 +1993,11 @@ def compare_gn(name, jac, plan, v, lam, timed=False):
     a CUDA graph (the eager bits), held to ``gn_product_plain`` on the same
     inputs bit for bit.  With ``timed``: the kernel's ms by CUDA events
     (median of 5, the wrapper's host work included), a call's ms in a CUDA
-    graph (``graph_replay_ms``; each kernel's device ms is in
-    ``pcg_iteration_profile``), the plain version's ms (once), the route before K5c
-    (``old_product``) eager and in a graph, the bound (``gn_bound``) and the
-    peak memory above the inputs of a call of each route.  The launch count
-    is restored."""
+    graph (``graph_replay_ms``), each kernel's device ms (``gn_device_ms``),
+    the plain version's ms (once), the route before K5c (``old_product``)
+    eager and in a graph, the bound and the contract floor (``gn_bound``)
+    and the peak memory above the inputs of a call of each route.  The
+    launch count is restored."""
     import torch
 
     from ltm_torch.kernels.gn_product import gn_product, gn_product_plain
@@ -2006,7 +2027,7 @@ def compare_gn(name, jac, plan, v, lam, timed=False):
         if timed:
             old = old_product(jac, plan, lam)
             kernel = lambda: gn_product(jac, plan, v, lam, scratch)     # noqa: E731
-            bound_ms, bound_by = gn_bound(jac, plan, v)
+            bound_ms, bound_by, floor_ms = gn_bound(jac, plan, v)
 
             def peak(fn):
                 torch.cuda.synchronize()
@@ -2016,17 +2037,31 @@ def compare_gn(name, jac, plan, v, lam, timed=False):
                 torch.cuda.synchronize()
                 return torch.cuda.max_memory_allocated() - base
 
-            st.update(ms=cuda_ms(kernel, reps=5), graph_replay_ms=graph_replay_ms(kernel),
-                      plain_ms=cuda_ms(lambda: gn_product_plain(jac, plan, v, lam), reps=1),
+            st.update(ms=cuda_ms(kernel, reps=5), graph_replay_ms=graph_replay_ms(kernel))
+            st.update(plain_ms=cuda_ms(lambda: gn_product_plain(jac, plan, v, lam), reps=1),
                       old_route_ms=cuda_ms(lambda: old(v), reps=5),
                       old_route_graph_replay_ms=graph_replay_ms(lambda: old(v), calls=5),
                       bound_ms=bound_ms, bound_by=bound_by,
+                      contract_floor_ms=floor_ms,
+                      device_ms=gn_device_ms(kernel, st["graph_replay_ms"]),
                       peak_above_inputs_bytes=peak(kernel),
                       old_route_peak_above_inputs_bytes=peak(lambda: old(v)),
-                      scratch_bytes=sum(t.numel() * t.element_size() for t in scratch.values()))
+                      scratch_bytes=gn_scratch_bytes(scratch))
     finally:
         set_gn_counts(saved)
     return st
+
+
+def gn_scratch_bytes(scratch):
+    """The bytes of the tensors a ``gn_product`` scratch dict holds."""
+    import torch
+
+    def size(t):
+        if torch.is_tensor(t):
+            return t.numel() * t.element_size()
+        return sum(size(x) for x in t) if isinstance(t, (tuple, list)) else 0
+
+    return sum(size(t) for t in scratch.values())
 
 
 # phase 8's pose graph as the RS run's marginals see it (the probe's log,
@@ -2035,22 +2070,34 @@ def compare_gn(name, jac, plan, v, lam, timed=False):
 SLAM_GRAPH = dict(n_vars=1026, n_fac=(4, 24812, 1016), valid=(1, 24804, 489), marginal_lanes=762)
 
 
+# the heavy-row cases of gn_cases (tests/test_torch_gn_product.py's
+# _RANDOM): (P, B, A) on 40 variables, every anchored factor valid, and the
+# anchored factors whose anchors coincide; the anchor rows take A - c and
+# A + c ends: at the heavy threshold (64), one either side, over two chunks
+GN_HEAVY_CASES = {"threshold": ((3, 45, 64), 0), "threshold_pm1": ((3, 45, 64), 1),
+                  "long_row": ((3, 45, 1524), 0)}
+
+
 def gn_cases(dev):
     """Phase 2, K5c: random graphs (``kernels.gn_product.random_gn_case``) of
-    phase 8's shape (``SLAM_GRAPH``) at 1, 4 and 120 lanes and at the RS
-    marginals' lanes (timed at 1 and at the marginals' lanes), and small
-    graphs with invalid factors, fixed variables, a row of degree 0 and
-    anchored factors whose anchors coincide, at 1, 2, 3 and 7 lanes, float32
-    and float64, each through ``compare_gn``."""
+    phase 8's shape (``SLAM_GRAPH``) at 1, 4, 120 lanes, either side of the
+    routes' threshold (``_WIDE`` - 1 and ``_WIDE``) and at the RS
+    marginals' lanes (timed at 1 and at the marginals' lanes); small graphs
+    with invalid factors, fixed variables, a row of degree 0 and anchored
+    factors whose anchors coincide, at 1, 2, 3 and 7 lanes, float32 and
+    float64; and small graphs whose anchor rows sit at the rows kernel's
+    heavy threshold, one either side of it, and over two of a heavy row's
+    chunks (``GN_HEAVY_CASES``) at 1, 4 and the marginals' lanes in float32
+    and at 4 and 40 lanes in float64: each through ``compare_gn``."""
     import torch
 
-    from ltm_torch.kernels.gn_product import random_gn_case
+    from ltm_torch.kernels.gn_product import _WIDE, random_gn_case
 
     rng = np.random.default_rng(43)
     out = []
     V, counts = SLAM_GRAPH["n_vars"], SLAM_GRAPH["n_fac"]
     valid = [v / max(n, 1) for v, n in zip(SLAM_GRAPH["valid"], counts)]
-    for lanes in sorted({1, 4, 120, SLAM_GRAPH["marginal_lanes"]}):
+    for lanes in sorted({1, 4, _WIDE - 1, _WIDE, 120, SLAM_GRAPH["marginal_lanes"]}):
         case = random_gn_case(rng, V, counts, (lanes,), torch.float32, dev, valid=valid)
         out.append(compare_gn(f"slam_shape_{lanes}_lanes", *case,
                               timed=lanes in (1, SLAM_GRAPH["marginal_lanes"])))
@@ -2059,9 +2106,104 @@ def gn_cases(dev):
             case = random_gn_case(rng, 40, (3, 45, 30), lanes, dtype, dev, valid=0.7,
                                   coincide=5)
             out.append(compare_gn(f"edges_{len(lanes) and lanes[0]}_lanes", *case))
+    for name, (fac, coincide) in GN_HEAVY_CASES.items():
+        for lanes, dtype in (((), torch.float32), ((4,), torch.float32), ((4,), torch.float64),
+                             ((40,), torch.float64), ((SLAM_GRAPH["marginal_lanes"],), torch.float32)):
+            case = random_gn_case(rng, 40, fac, lanes, dtype, dev, valid=(0.9, 0.9, 1.0),
+                                  coincide=coincide)
+            out.append(compare_gn(f"{name}_{len(lanes) and lanes[0]}_lanes", *case))
     for st in out:
         log(f"[2] gn_product (K5c) {json.dumps(st)}")
     return out
+
+
+def gn_shape_times(lanes=(1, SLAM_GRAPH["marginal_lanes"])):
+    """K5c on phase 8's graph (``SLAM_GRAPH``'s random graph, float32) at
+    each of ``lanes`` (by default the LM's one lane and the marginals'
+    lanes) with whatever ``ltm_torch`` comes first on the path
+    (``gn_turns`` and ``gn_crossover`` run it on two trees): held to the
+    plain version bit for bit, a call's ms in a CUDA graph of 50
+    (``graph_replay_ms``), eager (CUDA events, median of 5) and each
+    kernel's device ms (``gn_device_ms``)."""
+    import torch
+
+    from ltm_torch.kernels import _build
+    from ltm_torch.kernels.gn_product import gn_product, gn_product_plain, random_gn_case
+
+    _build.build_all()
+    dev = torch.device("cuda")
+    V, counts = SLAM_GRAPH["n_vars"], SLAM_GRAPH["n_fac"]
+    valid = [v / max(n, 1) for v, n in zip(SLAM_GRAPH["valid"], counts)]
+    out = {}
+    for n in lanes:
+        jac, plan, v, lam = random_gn_case(np.random.default_rng(n), V, counts, (n,),
+                                           torch.float32, dev, valid=valid)
+        scratch = {}
+        kernel = lambda: gn_product(jac, plan, v, lam, scratch)     # noqa: E731
+        got = kernel()
+        differ = int((got != gn_product_plain(jac, plan, v, lam)).sum())
+        replay = graph_replay_ms(kernel)
+        out[str(n)] = {"differ": differ, "graph_replay_ms": replay,
+                       "ms": cuda_ms(kernel, reps=5), "device_ms": gn_device_ms(kernel, replay)}
+    return out
+
+
+def _gn_tree_turns(dirs, order, lanes, tag):
+    """``gn_shape_times(lanes)`` on the trees ``dirs`` ({name: directory})
+    in ``order``, each turn in a process of its own started in the tree's
+    root, with this file's timing code: {name: [each turn's figures]}."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import importlib.util, json, os, sys; sys.path.insert(0, os.getcwd()); "
+            f"spec = importlib.util.spec_from_file_location('smoke', {os.path.join(here, 'chip_smoke.py')!r}); "
+            "m = importlib.util.module_from_spec(spec); spec.loader.exec_module(m); "
+            f"print('GN_TURN ' + json.dumps(m.gn_shape_times({tuple(lanes)!r})))")
+    turns = {}
+    for tree in order:
+        done = subprocess.run([sys.executable, "-c", code], cwd=os.path.abspath(dirs[tree]),
+                              capture_output=True, text=True, timeout=900)
+        lines = [ln for ln in done.stdout.splitlines() if ln.startswith("GN_TURN ")]
+        if done.returncode != 0 or not lines:
+            raise RuntimeError(f"{tag} ({tree}): rc {done.returncode}\n{done.stderr[-4000:]}")
+        turns.setdefault(tree, []).append(json.loads(lines[-1][len("GN_TURN "):]))
+        log(f"[{tag}] {tree}: {lines[-1][len('GN_TURN '):]}")
+    return turns
+
+
+def gn_turns(parent):
+    """``gn_shape_times`` at phase 8's two shapes on the parent (a directory
+    holding another checkout, e.g. unpacked from ``git archive``) and on
+    this tree, in turns: parent, change, change, parent."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    return _gn_tree_turns({"parent": parent, "change": here},
+                          ("parent", "change", "change", "parent"),
+                          (1, SLAM_GRAPH["marginal_lanes"]), "gn_turns")
+
+
+def gn_crossover(lanes=(4, 8, 12, 16, 24, 32, 64, 120), root="build/gn_crossover"):
+    """Where K5c's two routes cross: this tree's ``ltm_torch`` copied twice
+    under ``root``, with ``kWide`` (``csrc/gn_product.cu``) and ``_WIDE``
+    (``kernels/gn_product.py``) set to 1 (every lane count takes the wide
+    route) and to 1 << 20 (the narrow one), then ``gn_shape_times(lanes)``
+    on the two copies in turns: narrow, wide, wide, narrow."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    dirs = {}
+    for route, wide in (("narrow", 1 << 20), ("wide", 1)):
+        dst = os.path.join(here, root, route)
+        shutil.rmtree(dst, ignore_errors=True)
+        shutil.copytree(os.path.join(here, "ltm_torch"), os.path.join(dst, "ltm_torch"),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        for rel, pattern, new in (
+                ("csrc/gn_product.cu", r"constexpr int kWide = \d+;", f"constexpr int kWide = {wide};"),
+                ("kernels/gn_product.py", r"_THREADS, _WIDE, _HEAVY, _PER = 256, \d+, 64, 2",
+                 f"_THREADS, _WIDE, _HEAVY, _PER = 256, {wide}, 64, 2")):
+            path = os.path.join(dst, "ltm_torch", rel)
+            text, n = re.subn(pattern, new, open(path).read())
+            if n != 1:
+                raise RuntimeError(f"gn_crossover: {rel} does not hold {pattern!r} once")
+            with open(path, "w") as f:
+                f.write(text)
+        dirs[route] = dst
+    return _gn_tree_turns(dirs, ("narrow", "wide", "wide", "narrow"), lanes, "gn_crossover")
 
 
 class GnCheck:
@@ -5499,16 +5641,21 @@ def main() -> int:
     kernels.append({
         "name": "gn_product (K5c, the solver's Gauss-Newton product)",
         "route": "cuda",
-        "route_kernels": ["gn_factors<float|double> (a CTA a tile of 32 factors of one family: "
-                          "their blocks staged in shared memory once, a thread a (factor, "
-                          "lane) writing y_f = sum of J_e v over the factor's ends into a "
-                          "(factors, lanes, 6) scratch)",
-                          "gn_rows<float|double>, below 16 lanes (a warp a (row, tile of "
-                          "lanes), rows highest degree first: five (lane, end) slots of six "
-                          "threads, J_e^T y a column a thread, added in the plan's order "
-                          "through shuffles, then + lambda v)",
-                          "gn_rows_wide<float|double>, from 16 lanes (a warp a (row, 32 "
-                          "lanes), a thread a lane with the row's six sums)"],
+        "route_kernels": ["below 24 lanes: gn_factors<float|double> (a thread a (factor, lane) "
+                          "over the whole grid, y_f into a lane-fastest (factors, 6, lanes) "
+                          "scratch; lets gn_rows launch at once) -> gn_rows<float|double> "
+                          "(Programmatic Dependent Launch: blocks loaded before the wait on "
+                          "y; a CTA a (row, lane) for rows of more than 64 ends, a warp a "
+                          "(row, lane) for lighter ones; each chunk's products J_e^T y at "
+                          "once into shared memory, added in list order, + lambda v)",
+                          "from 24 lanes: gn_end_table<float|double> (once a plan and its "
+                          "blocks: a 64-byte record a list entry) -> gn_transpose<float|"
+                          "double> (v by 32-lane tile, with a row of zeros) -> "
+                          "gn_rows_wide<float|double> (Programmatic Dependent Launch; a CTA "
+                          "a (row, 32 lanes), records and blocks staged by cp.async a chunk "
+                          "ahead, its warps forming each end's y_f afresh from vt and J_e^T "
+                          "y_f at once, added in list order, + lambda v; no y in device "
+                          "memory)"],
         "source": "ltm_torch/csrc/gn_product.cu",
         "replaces": "ltm/graph/solver.py:264",
         "launches": fw["gn_launches_per_run"][-1],
@@ -5523,6 +5670,13 @@ def main() -> int:
         "calls_checked_rs_run": fw["rs_run"]["gn_check"]["checked"],
         "ms": gn8["ms"], "graph_replay_ms": gn8["graph_replay_ms"],
         "plain_ms": gn8["plain_ms"], "bound_ms": gn8["bound_ms"], "bound_by": gn8["bound_by"],
+        "contract_floor_ms": gn8["contract_floor_ms"], "device_ms": gn8["device_ms"],
+        "device_ms_phase2": {st["case"]: st["device_ms"] for st in gn_phase2 if "device_ms" in st},
+        "device_ms_pcg_iteration": {
+            "lm": {k: v for k, v in fw["pcg_iteration_profile"]["kernel"]["top_device_ms"].items()
+                   if "gn_" in k},
+            "marginals": {k: v for k, v in fw["rs_marginals"]["turns"]["pcg_iteration_profile"]
+                          ["kernel"]["top_device_ms"].items() if "gn_" in k}},
         "library_ms": None,
         "library": "none: no PyTorch call computes this product",
         "old_route_ms": gn8["old_route_ms"],
@@ -5530,9 +5684,9 @@ def main() -> int:
         "call": {k: gn8[k] for k in ("lanes", "variables", "factors", "ends", "valid_ends",
                                      "max_degree", "dtype")},
         "marginals_call": {k: gn_rs.get(k) for k in (
-            "lanes", "ms", "graph_replay_ms", "plain_ms", "old_route_ms",
-            "old_route_graph_replay_ms", "bound_ms", "bound_by", "peak_above_inputs_bytes",
-            "old_route_peak_above_inputs_bytes", "scratch_bytes")},
+            "lanes", "ms", "graph_replay_ms", "device_ms", "plain_ms", "old_route_ms",
+            "old_route_graph_replay_ms", "bound_ms", "bound_by", "contract_floor_ms",
+            "peak_above_inputs_bytes", "old_route_peak_above_inputs_bytes", "scratch_bytes")},
         "cases": len(gn_phase2),
     })
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")

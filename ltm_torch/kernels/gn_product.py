@@ -14,9 +14,14 @@ ends that name it, plus ``λ v``.  Every 6-term product ``Σ_k J[i, k] x[k]``
 is summed in k order with each product and each sum rounded (no FMA).
 
 :func:`gn_product` launches the hand-written kernel ``csrc/gn_product.cu``
-on CUDA tensors (two passes: the factors' ``y`` into a scratch, then a
-warp a (row, lane tile) over the row's ends; the module docstring of the
-source) and raises on any other device.  :func:`gn_product_plain` is the
+on CUDA tensors (the module docstring of the source): below ``_WIDE``
+lanes the factors' ``y`` into a (factors, 6, lanes) scratch, then the
+rows, a CTA a (row, lane) for a row of more than ``_HEAVY`` ends and a warp
+a (row, lane) for a lighter one, their products formed at once and added
+in list order; from ``_WIDE`` lanes a CTA a (row, 32 lanes) forming each
+end's ``y_f`` afresh from a transposed copy of ``v``, with no ``y`` in
+device memory.  It raises on any other device.
+:func:`gn_product_plain` is the
 plain version, elementwise torch ops in the same order: the CPU route and
 the card's reference, which the kernel equals bit for bit.
 :func:`random_gn_case` makes the random graphs on which ``chip_smoke.py``
@@ -42,16 +47,25 @@ __all__ = ["GnPlan", "plan_gn_product", "gn_product", "gn_product_plain", "rando
 # one end, a between factor's two, an anchored factor's four
 _FAMILIES = ((0,), (1, 2), (3, 4, 5, 6))
 
+# kThreads, kWide, kHeavy, kPer of csrc/gn_product.cu (checked on load):
+# threads a CTA; lanes from which the rows take a warp a (row, 32 lanes);
+# below, the degree above which a row takes a CTA (else a warp); ends a
+# thread a chunk
+_THREADS, _WIDE, _HEAVY, _PER = 256, 24, 64, 2
+
 
 class GnPlan(NamedTuple):
     """Where the product reads: ``ends``, the scatter plan of the factor
     ends into the variables' rows (``_FACTOR_ENDS`` order, invalid factors
     left out); ``idx``, the seven end index arrays (int32); ``fixed`` (V,)
-    uint8, the variables whose entries of ``v`` the factors read as 0."""
+    uint8, the variables whose entries of ``v`` the factors read as 0;
+    ``n_heavy``, the rows of more than ``_HEAVY`` ends, a prefix of
+    ``ends.order`` (highest degree first)."""
 
     ends: ScatterPlan
     idx: Tuple[torch.Tensor, ...]
     fixed: torch.Tensor
+    n_heavy: int
 
 
 def plan_gn_product(ends: ScatterPlan, idx: Sequence[np.ndarray], fixed: np.ndarray,
@@ -72,8 +86,10 @@ def plan_gn_product(ends: ScatterPlan, idx: Sequence[np.ndarray], fixed: np.ndar
     if any(a.size and (a.min() < 0 or a.max() >= V) for a in idx):
         raise ValueError(f"end indices must lie in [0, {V})")
     dev = torch.device(device)
+    degree = np.diff(ends.rowptr.cpu().numpy().astype(np.int64))
     return GnPlan(ends, tuple(torch.from_numpy(a.astype(np.int32)).to(dev) for a in idx),
-                  torch.from_numpy(np.asarray(fixed, np.uint8)).to(dev))
+                  torch.from_numpy(np.asarray(fixed, np.uint8)).to(dev),
+                  int((degree > _HEAVY).sum()))
 
 
 def _check(jac, plan: GnPlan, v: torch.Tensor):
@@ -178,45 +194,62 @@ class _Args(ctypes.Structure):
     _fields_ = [("J", ctypes.c_void_p * 7), ("idx", ctypes.c_void_p * 7),
                 ("fixed", ctypes.c_void_p), ("rowptr", ctypes.c_void_p),
                 ("cols", ctypes.c_void_p), ("order", ctypes.c_void_p), ("v", ctypes.c_void_p),
-                ("lam", ctypes.c_void_p), ("y", ctypes.c_void_p), ("out", ctypes.c_void_p),
-                ("n_fac", ctypes.c_int * 3), ("n_vars", ctypes.c_int),
-                ("n_lanes", ctypes.c_int), ("dtype", ctypes.c_int)]
+                ("lam", ctypes.c_void_p), ("y", ctypes.c_void_p), ("vt", ctypes.c_void_p),
+                ("ends", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("n_fac", ctypes.c_int * 3), ("n_vars", ctypes.c_int), ("n_lanes", ctypes.c_int),
+                ("n_heavy", ctypes.c_int), ("n_entries", ctypes.c_int),
+                ("make_table", ctypes.c_int), ("dtype", ctypes.c_int)]
 
 
 def gn_product(jac: Sequence[torch.Tensor], plan: GnPlan, v: torch.Tensor, lam,
                scratch: dict) -> torch.Tensor:
     """(..., V, 6): ``(JᵀWJ + λI) v`` for the lanes of ``v`` (CUDA tensors
-    only; ``jac`` the seven contiguous block arrays, ``lam`` a 0-d tensor of
-    ``v``'s type on its device), by the kernel (``gn_product.launches``).
-    The factors' ``y`` goes to a scratch of (factors, lanes, 6) kept in the
-    dict ``scratch`` by lane count and type, made on the first call, so a
-    CUDA graph that captures a later call holds the launches alone.  Gives
+    only; ``jac`` the seven contiguous, 16-byte aligned block arrays,
+    ``lam`` a 0-d tensor of ``v``'s type on its device), by the kernel
+    (``gn_product.launches``).  The dict ``scratch`` keeps what the first
+    call makes for later ones, by lane count and type: below ``_WIDE``
+    lanes the factors' ``y`` (factors, 6, lanes); from ``_WIDE`` lanes ``v``
+    transposed by 32-lane tile with a row of zeros, the rows forming each
+    ``y_f`` from it, and a record of each list entry's factor and blocks
+    (written by a call with new blocks), so a CUDA graph that captures a
+    later call holds the launches alone; the first call is eager.  Gives
     :func:`gn_product_plain`'s bits."""
     if v.device.type != "cuda":
         raise RuntimeError(f"gn_product launches its kernel on CUDA tensors, not {v.device}; "
                            "the plain version is gn_product_plain")
     _check(jac, plan, v)
-    if not all(J.is_contiguous() for J in jac):
-        raise ValueError("the block arrays must be contiguous")
+    if not all(J.is_contiguous() and J.data_ptr() % 16 == 0 for J in jac):
+        raise ValueError("the block arrays must be contiguous and 16-byte aligned")
     if not (torch.is_tensor(lam) and lam.dim() == 0 and lam.dtype == v.dtype
             and lam.device == v.device):
         raise ValueError(f"lam must be a 0-d {v.dtype} tensor on {v.device}")
     lanes = math.prod(v.shape[:-2])
+    V = v.shape[-2]
     v = v.contiguous()
     out = torch.empty_like(v)
     counts = (plan.idx[0].shape[0], plan.idx[1].shape[0], plan.idx[3].shape[0])
     key = (lanes, v.dtype)
     if key not in scratch:
-        scratch[key] = v.new_empty((sum(counts), lanes, 6))
-    y = scratch[key]
-    a = _Args(n_fac=(ctypes.c_int * 3)(*counts), n_vars=v.shape[-2], n_lanes=lanes,
-              dtype=int(v.dtype == torch.float64))
-    a.J[:] = [J.data_ptr() for J in jac]
+        scratch[key] = ((None, v.new_empty((V + 1) * -(-lanes // 32) * 192)) if lanes >= _WIDE
+                        else (v.new_empty((sum(counts), 6, lanes)), None))
+    n_entries = plan.ends.cols.shape[0]
+    blocks = tuple(J.data_ptr() for J in jac)
+    make_table = lanes >= _WIDE and scratch.get("end_table", (None,))[0] != blocks
+    if make_table:
+        scratch["end_table"] = (blocks, torch.empty((n_entries, 16), dtype=torch.int32,
+                                                    device=v.device))
+    y, vt = scratch[key]
+    a = _Args(n_fac=(ctypes.c_int * 3)(*counts), n_vars=V, n_lanes=lanes,
+              n_heavy=plan.n_heavy if lanes < _WIDE else 0, n_entries=n_entries,
+              make_table=int(make_table), dtype=int(v.dtype == torch.float64))
+    a.J[:] = blocks
     a.idx[:] = [i.data_ptr() for i in plan.idx]
     e = plan.ends
     a.fixed, a.rowptr, a.cols, a.order = (plan.fixed.data_ptr(), e.rowptr.data_ptr(),
                                           e.cols.data_ptr(), e.order.data_ptr())
-    a.v, a.lam, a.y, a.out = v.data_ptr(), lam.data_ptr(), y.data_ptr(), out.data_ptr()
+    a.v, a.lam, a.out = v.data_ptr(), lam.data_ptr(), out.data_ptr()
+    a.y, a.vt = (t.data_ptr() if t is not None else None for t in (y, vt))
+    a.ends = scratch["end_table"][1].data_ptr() if lanes >= _WIDE else None
     dev = v.device.index
     rc = _lib().ltm_gn_product(ctypes.byref(a), dev, torch._C._cuda_getCurrentRawStream(dev))
     if rc != 0:
@@ -243,4 +276,10 @@ def _lib() -> ctypes.CDLL:
     if lib.ltm_gn_args_size() != ctypes.sizeof(_Args):
         raise RuntimeError(f"csrc/gn_product.cu's GnArgs has {lib.ltm_gn_args_size()} bytes; "
                            f"the wrapper's _Args {ctypes.sizeof(_Args)}")
+    got = [i() for _ in range(4)]
+    lib.ltm_gn_config(*(ctypes.byref(x) for x in got))
+    if tuple(x.value for x in got) != (_THREADS, _WIDE, _HEAVY, _PER):
+        raise RuntimeError(f"csrc/gn_product.cu's (kThreads, kWide, kHeavy, kPer) are "
+                           f"{tuple(x.value for x in got)}; the wrapper's "
+                           f"{(_THREADS, _WIDE, _HEAVY, _PER)}")
     return lib

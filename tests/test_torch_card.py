@@ -29,9 +29,11 @@ JAX) and without the CPU settings of ``pytest.ini``:
   * K5c, the solver's Gauss-Newton product (``csrc/gn_product.cu``), on
     random pose graphs (``random_gn_case``: invalid factors, fixed
     variables, a row of degree 0, anchored factors whose anchors coincide)
-    at 1, 2, 3, 7 and 120 lanes, float32 and float64: bit-equal to
-    ``gn_product_plain``, a second launch and a call captured in a CUDA
-    graph bit-equal to the first.
+    at 1, 2, 3, 7 and 120 lanes, float32 and float64, and on graphs whose
+    anchor rows sit at the rows kernel's heavy threshold, one either side
+    of it, and over two of a heavy row's chunks, at 1, 4 and 40 lanes:
+    bit-equal to ``gn_product_plain``, a second launch and a call captured
+    in a CUDA graph bit-equal to the first.
 
 ``chip_smoke.py`` runs the same checks at the pipeline's shapes.
 """
@@ -186,12 +188,9 @@ def test_tridiag_kernels_match_plain(dev, dtype, lanes):
     card_rule(x, tridiag_apply_plain, (Cinv, Lc, pos, r), 1)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("lanes", [(), (2,), (3,), (7,), (120,)])
-def test_gn_product_kernel_matches_plain(dev, dtype, lanes):
-    rng = np.random.default_rng(len(lanes) and lanes[0])
-    jac, plan, v, lam = random_gn_case(rng, 300, (3, 700, 200), lanes, dtype, dev, valid=0.8,
-                                       coincide=7)
+def _gn_checks(jac, plan, v, lam):
+    """K5c bit-equal to the plain version, twice and captured in a CUDA
+    graph, each call counted."""
     scratch = {}
     before = gn_product.launches
     got = gn_product(jac, plan, v, lam, scratch)
@@ -206,3 +205,24 @@ def test_gn_product_kernel_matches_plain(dev, dtype, lanes):
     torch.cuda.synchronize()
     assert torch.equal(out, got)
     assert gn_product.launches == before + 3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("lanes", [(), (2,), (3,), (7,), (120,)])
+def test_gn_product_kernel_matches_plain(dev, dtype, lanes):
+    rng = np.random.default_rng(len(lanes) and lanes[0])
+    jac, plan, v, lam = random_gn_case(rng, 300, (3, 700, 200), lanes, dtype, dev, valid=0.8,
+                                       coincide=7)
+    _gn_checks(jac, plan, v, lam)
+
+
+# (P, B, A) on 40 variables and the anchored factors whose anchors
+# coincide: the anchor rows take A - c and A + c ends (every anchored factor
+# valid), at the heavy threshold (64), one either side, over two chunks
+@pytest.mark.parametrize("fac", [((3, 45, 64), 0), ((3, 45, 64), 1), ((3, 45, 1524), 0)])
+@pytest.mark.parametrize("lanes", [(), (4,), (40,)])
+def test_gn_product_heavy_rows_match_plain(dev, fac, lanes):
+    rng = np.random.default_rng(len(lanes) and lanes[0])
+    jac, plan, v, lam = random_gn_case(rng, 40, fac[0], lanes, torch.float32, dev,
+                                       valid=(0.9, 0.9, 1.0), coincide=fac[1])
+    _gn_checks(jac, plan, v, lam)

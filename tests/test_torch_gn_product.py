@@ -12,12 +12,20 @@ random graphs of ``random_gn_case``, inputs from a NumPy seed:
     end, the contributions concatenated, one fixed-order scatter-sum);
   * against a dense float64 ``(JᵀWJ + λI) v`` under the same rule;
   * a lane computed alone bit-equal to the same lane in a batch;
-  * the kernel's schedule written out in Python (``_kernel_model``: the
-    factors' ``y`` in a (factors, lanes, 6) scratch, a warp a (row, lane
-    tile) in the plan's order, five (lane, end) slots, ``_STEPS`` ends
-    loaded before their products, the slots' products added in list order)
-    bit-equal to the plain version at 1 to 12 lanes, and its decoding of an
-    end's position into its block and ``y`` row;
+  * the kernel's schedule written out in Python (``_kernel_model``: below
+    ``_WIDE`` lanes the factors' ``y`` in a lane-fastest (factors, 6, lanes)
+    scratch and the rows launch of ``row_teams``, a CTA a (row, lane) for a
+    row of more than ``_HEAVY`` ends and a warp for a lighter one, each
+    chunk's products formed at once and added in list order onto sums
+    carried across chunks; from ``_WIDE`` lanes a CTA a (row, 32 lanes)
+    forming each end's ``y_f`` afresh from ``v`` transposed) bit-equal to
+    the plain version at 1 to 40 lanes, in float32 and float64, on rows at
+    the heavy threshold and one either side of it and on rows longer than
+    two chunks, and its decoding of an end's position into its block and
+    ``y`` row;
+  * the rows launch (``row_teams``, ``team_chunks``) covering every (row,
+    lane) once, heavy rows (the plan's ``n_heavy``) by a CTA, and every
+    row's list once in order;
   * the plan's checks, the wrapper's refusal of CPU tensors, and the
     solver's product refusing a device that is neither.
 
@@ -34,8 +42,8 @@ import torch
 from ltm.graph import solver as jsolver
 from ltm_torch.graph import solver as tsolver
 from ltm_torch.graph.factors import robust_weights, whitened_residuals
-from ltm_torch.kernels.gn_product import (gn_product, gn_product_plain, plan_gn_product,
-                                          random_gn_case)
+from ltm_torch.kernels.gn_product import (_HEAVY, _PER, _THREADS, _WIDE, gn_product,
+                                          gn_product_plain, plan_gn_product, random_gn_case)
 from ltm_torch.kernels.scatter import fixed_order_sum, plan_scatter
 from ltm_torch.slam.convert import graph_from_arrays, graph_to_arrays
 
@@ -44,9 +52,42 @@ from test_torch_solver_scatter import _anc_pairs, _fj, _high_degree_graph
 
 torch.set_num_threads(1)
 
-_STEPS = 4     # kSteps of csrc/gn_product.cu: ends in flight a slot
-_SLOTS = 5     # kSlots: (lane, end) slots of six threads a warp
-_WIDE = 16     # kWide: lanes from which the rows take a thread a lane
+# random graphs of 40 variables: (P, B, A), the anchored factors' valid share
+# and how many have coinciding anchors.  The two anchor rows take A - c and
+# A + c ends: at the heavy threshold, one either side of it, and over two of
+# a heavy row's chunks (``_THREADS * _PER`` ends).
+_RANDOM = {"random": ((3, 45, 30), 0.9, 0), "random_coincide": ((3, 45, 30), 0.9, 4),
+           "threshold": ((3, 45, _HEAVY), 1.0, 0), "threshold_pm1": ((3, 45, _HEAVY), 1.0, 1),
+           "long_row": ((3, 45, 2 * _THREADS * _PER + 500), 1.0, 0)}
+
+
+def row_teams(n_rows: int, n_heavy: int, lanes: int):
+    """The narrow route's rows launch (``gn_rows``, below ``_WIDE`` lanes)
+    as the kernel decodes it: for each CTA in launch order and each team in
+    it, ``(rank, lane, threads)``: the row ``plan.ends.order[rank]``, its
+    lane, and the team's threads (``_THREADS``: the CTA of a heavy row; 32:
+    a warp of a light one).  Blocks ``[0, n_heavy * lanes)`` are the heavy
+    rows' (lanes fastest); then ``_THREADS // 32`` warps a block, a warp a
+    (light row, lane), lanes fastest; warps past the last row do nothing."""
+    warps = _THREADS // 32
+    heavy = n_heavy * lanes
+    blocks = heavy + -(-(n_rows - n_heavy) * lanes // warps)
+    for b in range(blocks):
+        if b < heavy:
+            yield b // lanes, b % lanes, _THREADS
+            continue
+        for w in range(warps):
+            item = (b - heavy) * warps + w
+            if n_heavy + item // lanes < n_rows:
+                yield n_heavy + item // lanes, item % lanes, 32
+
+
+def team_chunks(j0: int, j1: int, threads: int):
+    """A team's chunks of the row list ``[j0, j1)``: ``threads * _PER``
+    entries each, in list order (one empty chunk for a row of no ends);
+    thread t takes entries t and t + threads of each."""
+    step = threads * _PER
+    return [(c, min(c + step, j1)) for c in range(j0, max(j1, j0 + 1), step)]
 
 
 def _ltm_graph(name):
@@ -56,13 +97,14 @@ def _ltm_graph(name):
     return j_build(init, fixed, **kw)
 
 
-def _case(name, lanes, seed=0):
+def _case(name, lanes, seed=0, dtype=torch.float32):
     """(jac, plan, v, lam, ltm graph or None, port graph or None) of a named
     graph: its Jacobians at its initial poses, ``v`` from a NumPy seed."""
     rng = np.random.default_rng(seed)
-    if name.startswith("random"):
-        jac, plan, v, lam = random_gn_case(rng, 40, (3, 45, 30), lanes,
-                                           coincide=4 if name == "random_coincide" else 0)
+    if name in _RANDOM:
+        counts, valid, coincide = _RANDOM[name]
+        jac, plan, v, lam = random_gn_case(rng, 40, counts, lanes, dtype,
+                                           valid=(0.9, 0.9, valid), coincide=coincide)
         return jac, plan, v, lam, None, None
     jg = _ltm_graph(name) if name in ("quadratic", "anchored") else None
     g = graph_from_arrays(graph_to_arrays(jg), "cpu") if jg is not None else _high_degree_graph()
@@ -181,69 +223,141 @@ def test_end_block_decodes_the_ends_order(counts):
         assert _end_block(e, P, B, A) == (k, f, yrow0[k] + f)
 
 
+def _factor_y(jac, idx, ends, x, anchored):
+    """``y_f`` of factors whose ends are the arrays ``ends`` and whose
+    variables' entries are ``x`` (one (lanes, n, 6) a factor end): its
+    ends' ``J x`` added in order, an anchored factor's from +0.0."""
+    acc = None
+    for k, xk in zip(ends, x):
+        t = jac[k][:, :, 0] * xk[..., 0:1]
+        for c in range(1, 6):
+            t = t + jac[k][:, :, c] * xk[..., c:c + 1]
+        acc = (torch.zeros_like(t) + t if anchored else t) if acc is None else acc + t
+    return acc
+
+
 def _kernel_model(jac, plan, v, lam):
-    """``csrc/gn_product.cu``'s two passes in Python.  gn_factors: each
-    factor's ``y`` for every lane into a (P + B + A, lanes, 6) scratch, its
-    ends in order (an anchored factor's from +0.0).  gn_rows: rows in
-    ``plan.ends.order``; below ``_WIDE`` lanes, lanes in tiles of
-    ``min(5, lanes)``, each tile's lanes times ``5 // tile`` consecutive
-    ends in the slots, from ``_WIDE`` on (gn_rows_wide) tiles of 32 lanes
-    and one end a step; the row's list 32 entries at a time; ``_STEPS``
-    slot loads, then each end's ``Σ_i J[i, j] y[i]`` and the slots'
-    products added in list order from +0.0; then ``+ λ v``."""
+    """``csrc/gn_product.cu``'s passes in Python.  Below ``_WIDE`` lanes:
+    gn_factors, each factor's ``y`` for every lane into a (P + B + A, 6,
+    lanes) scratch, its ends in order (an anchored factor's from +0.0);
+    then gn_rows, each team of ``row_teams`` walking the ``team_chunks`` of
+    its row: a chunk's products ``Σ_i J[i, j] y[i]`` are formed at once (the
+    team's threads, kPer ends each) and written in list order, then added in
+    list order onto the column sums, which carry across chunks.  From
+    ``_WIDE`` lanes: ``v`` transposed by gn_transpose, then gn_rows_wide, a
+    CTA a (row, 32 lanes) whose warps form a chunk's products at once, each
+    end's ``y_f`` afresh from the transposed copy, added in list order (the
+    lanes are independent and the sum's order is the list's, so the model
+    takes every lane and end in turn).  Then ``+ λ v``."""
     V = plan.fixed.shape[0]
     lanes = v.reshape(-1, V, 6)
     L = lanes.shape[0]
     P, B, A = (plan.idx[k].shape[0] for k in (0, 1, 3))
     idx = [i.long() for i in plan.idx]
-    vf = torch.where(plan.fixed.bool()[:, None], 0.0, lanes)
-    y = torch.full((P + B + A, L, 6), torch.nan, dtype=v.dtype)
-    for fam, (ends, y0) in enumerate((((0,), 0), ((1, 2), P), ((3, 4, 5, 6), P + B))):
-        n = idx[ends[0]].shape[0]
-        acc = torch.zeros((L, n, 6), dtype=v.dtype)
-        for e, k in enumerate(ends):
-            x = vf[:, idx[k], :]
-            t = jac[k][:, :, 0] * x[..., 0:1]
-            for c in range(1, 6):
-                t = t + jac[k][:, :, c] * x[..., c:c + 1]
-            acc = t if e == 0 and fam != 2 else acc + t
-        y[y0:y0 + n] = acc.transpose(0, 1)
+    fixed = plan.fixed.bool()
     rowptr, cols = plan.ends.rowptr.tolist(), plan.ends.cols.tolist()
-    tile = 32 if L >= _WIDE else min(_SLOTS, L)      # gn_rows_wide: one end a step
-    group = 1 if L >= _WIDE else _SLOTS // tile
+    order = plan.ends.order.tolist()
+    blocks = torch.cat(jac)                                      # by end position
+    families = (((0,), 0), ((1, 2), P), ((3, 4, 5, 6), P + B))
+
+    def mtv(J, yy):
+        """``Σ_i J[i, j] y[i]`` in i order: (n, 6, 6), (..., n, 6)."""
+        c = J[:, 0, :] * yy[..., 0:1]
+        for i in range(1, 6):
+            c = c + J[:, i, :] * yy[..., i:i + 1]
+        return c
+
     out = torch.full_like(lanes, torch.nan)
-    for row in plan.ends.order.tolist():
-        j0, j1 = rowptr[row], rowptr[row + 1]
-        for t0 in range(0, L, tile):
-            ls = slice(t0, min(t0 + tile, L))
-            acc = torch.zeros_like(lanes[ls, row])
-            for c0 in range(j0, j1, 32):
-                n = min(32, j1 - c0)
-                for s0 in range(0, n, _STEPS * group):
-                    prods = {}
-                    for q in range(_STEPS):
-                        for g in range(group):
-                            m = s0 + q * group + g
-                            if m < n:
-                                k, f, yrow = _end_block(cols[c0 + m], P, B, A)
-                                yy = y[yrow, ls]
-                                c = jac[k][f][0, :] * yy[:, 0:1]
-                                for i in range(1, 6):
-                                    c = c + jac[k][f][i, :] * yy[:, i:i + 1]
-                                prods[m] = c
-                    for q in range(_STEPS):
-                        for g in range(group):
-                            if s0 + q * group + g < n:
-                                acc = acc + prods[s0 + q * group + g]
-            out[ls, row] = acc + lam * lanes[ls, row]
+    if L >= _WIDE:
+        vt = lanes.permute(1, 2, 0).clone()                      # gn_transpose
+        for row in order:
+            acc = torch.zeros((L, 6), dtype=v.dtype)
+            for e in cols[rowptr[row]:rowptr[row + 1]]:
+                k, f, _ = _end_block(e, P, B, A)
+                ends = next(fam for fam, _ in families if k in fam)
+                x = [torch.where(fixed[idx[q][f]], 0.0, vt[idx[q][f]].T)[:, None]
+                     for q in ends]
+                yf = _factor_y([J[f:f + 1] for J in jac], range(7), ends, x, len(ends) == 4)
+                acc = acc + mtv(jac[k][f:f + 1], yf)[:, 0]
+            out[:, row] = acc + lam * vt[row].T
+        return out.reshape(v.shape)
+    vf = torch.where(fixed[:, None], 0.0, lanes)
+    y = torch.full((P + B + A, 6, L), torch.nan, dtype=v.dtype)
+    for ends, y0 in families:
+        n = idx[ends[0]].shape[0]
+        y[y0:y0 + n] = _factor_y(jac, range(7), ends, [vf[:, idx[k], :] for k in ends],
+                                 len(ends) == 4).permute(1, 2, 0)
+    yrow = torch.tensor([_end_block(e, P, B, A)[2] for e in range(blocks.shape[0])] or [0])
+    for rank, lane, threads in row_teams(V, plan.n_heavy, L):
+        row = order[rank]
+        acc = torch.zeros(6, dtype=v.dtype)
+        for c0, c1 in team_chunks(rowptr[row], rowptr[row + 1], threads):
+            ends = torch.tensor(cols[c0:c1], dtype=torch.long)
+            prod = mtv(blocks[ends], y[yrow[ends], :, lane])
+            for m in range(c1 - c0):
+                acc = acc + prod[m]
+        out[lane, row] = acc + lam * lanes[lane, row]
     return out.reshape(v.shape)
 
 
-@pytest.mark.parametrize("name", ["anchored", "high_degree", "random", "random_coincide"])
-@pytest.mark.parametrize("lanes", [(), (2,), (3,), (4,), (7,), (12,), (16,), (40,)])
+_MODEL_NAMES = ["anchored", "high_degree", "random", "random_coincide", "threshold",
+                "threshold_pm1", "long_row"]
+
+
+@pytest.mark.parametrize("name", _MODEL_NAMES)
+@pytest.mark.parametrize("lanes", [(), (2,), (3,), (4,), (7,), (12,), (16,), (40,),
+                                   (_WIDE - 1,), (_WIDE,)])
 def test_kernel_model_equals_plain(name, lanes):
     jac, plan, v, lam, _, _ = _case(name, lanes, seed=len(lanes) and lanes[0])
     assert torch.equal(_kernel_model(jac, plan, v, lam), gn_product_plain(jac, plan, v, lam))
+
+
+@pytest.mark.parametrize("name", ["random_coincide", "threshold_pm1", "long_row"])
+@pytest.mark.parametrize("lanes", [(), (5,), (16,), (_WIDE,)])
+def test_kernel_model_equals_plain_float64(name, lanes):
+    jac, plan, v, lam, _, _ = _case(name, lanes, seed=7, dtype=torch.float64)
+    assert v.dtype == torch.float64
+    assert torch.equal(_kernel_model(jac, plan, v, lam), gn_product_plain(jac, plan, v, lam))
+
+
+def test_threshold_cases_rows():
+    """The anchor rows of the named cases sit where their names say."""
+    degrees = {}
+    for name in ("threshold", "threshold_pm1", "long_row"):
+        plan = _case(name, ())[1]
+        deg = np.diff(plan.ends.rowptr.numpy())
+        degrees[name] = (int(deg[37]), int(deg[38]))
+    assert degrees["threshold"] == (_HEAVY, _HEAVY)
+    assert degrees["threshold_pm1"] == (_HEAVY + 1, _HEAVY - 1)
+    assert min(degrees["long_row"]) > 2 * _THREADS * _PER
+
+
+@pytest.mark.parametrize("name", ["high_degree", "random", "threshold", "threshold_pm1",
+                                  "long_row"])
+@pytest.mark.parametrize("L", [1, 2, 5, 15, _WIDE - 1])
+def test_rows_launch_covers_every_row_and_lane_once(name, L):
+    plan = _case(name, ())[1]
+    V = plan.fixed.shape[0]
+    rowptr = plan.ends.rowptr.numpy()
+    deg = np.diff(rowptr)
+    order = plan.ends.order.numpy()
+    n_heavy = plan.n_heavy
+    assert n_heavy == int((deg > _HEAVY).sum())
+    assert (deg[order[:n_heavy]] > _HEAVY).all() and (deg[order[n_heavy:]] <= _HEAVY).all()
+    teams = list(row_teams(V, n_heavy, L))
+    assert sorted((r, ln) for r, ln, _ in teams) == [(r, ln) for r in range(V) for ln in range(L)]
+    for rank, _, threads in teams:
+        row = order[rank]
+        assert threads == (_THREADS if deg[row] > _HEAVY else 32)
+        chunks = team_chunks(int(rowptr[row]), int(rowptr[row + 1]), threads)
+        assert chunks[0][0] == rowptr[row] and chunks[-1][1] == rowptr[row + 1]
+        assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+        assert all(0 < c1 - c0 <= threads * _PER for c0, c1 in chunks) or deg[row] == 0
+        if threads == 32:
+            assert len(chunks) == 1                      # a light row is one chunk
+    if name == "long_row":
+        assert max(len(team_chunks(int(rowptr[r]), int(rowptr[r + 1]), _THREADS))
+                   for r in range(V)) >= 3
 
 
 def test_random_case_layout():
